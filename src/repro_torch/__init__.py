@@ -1,0 +1,19 @@
+"""repro_torch — the PyTorch/CUDA port of ``repro`` (StarPlat-Dynamic).
+
+The package mirrors ``repro``'s module layout and names; it imports
+torch, numpy and scipy, and nothing of JAX or ``repro``.  Entry points
+run on the card unless ``device="cpu"`` is asked for.  Backends:
+``torch`` (plain tensor reference) and ``cuda`` (hand-written Hopper
+kernels, ``csrc/``).
+"""
+from repro_torch.api import GraphSession, bind_graph, props_from_numpy
+from repro_torch.core.registry import (available_backends, make_engine,
+                                       register_engine)
+from repro_torch.graph import (CSR, UpdateBatch, UpdateStream, build_csr,
+                               random_updates, rmat_graph)
+
+__all__ = [
+    "GraphSession", "bind_graph", "props_from_numpy", "available_backends",
+    "make_engine", "register_engine", "CSR", "UpdateBatch", "UpdateStream",
+    "build_csr", "random_updates", "rmat_graph",
+]

@@ -1,0 +1,161 @@
+"""ELL packing: row-split ELLPACK of the alive edge set (counterpart of
+``repro.kernels.ell``, where the layout is written down).
+
+* edges are grouped by destination; each destination's in-edges fill
+  rows of K slots; ``row2dst`` maps a row back to its vertex (sentinel
+  n for unused rows), empty slots hold the sentinel src == n;
+* R = n + ceil((E+D)/K), rounded up to 128 rows, so a pack is
+  slot-for-slot the reference's;
+* ``lane2slot`` maps every edge lane to its flat slot, so deletions and
+  revivals patch the pack in place; only appends to the diff pool, which
+  shift diff lanes, rebuild it.
+
+Property vectors handed to the kernels are padded to n+1 with the
+reduction identity at slot n, so empty slots gather the identity.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.graph.csr import INT
+from repro_torch.graph.diffcsr import DynGraph, update_lanes
+from repro_torch.tensors import cumsum32, set_drop, to_device
+
+
+@dataclasses.dataclass(frozen=True)
+class Ell:
+    ell_src: torch.Tensor    # (R, K) int32, sentinel n
+    ell_w: torch.Tensor      # (R, K) int32
+    row2dst: torch.Tensor    # (R,) int32, sentinel n
+    # (E+D,) flat slot index (< R*K) of every materialized edge lane,
+    # sentinel R*K for unmaterialized diff rows
+    lane2slot: torch.Tensor
+    n: int
+
+    @property
+    def R(self) -> int:
+        return int(self.ell_src.shape[0])
+
+    @property
+    def K(self) -> int:
+        return int(self.ell_src.shape[1])
+
+
+_ELL_FIELDS = tuple(f.name for f in dataclasses.fields(Ell) if f.name != "n")
+
+
+def ell_state(e: Ell) -> dict:
+    """An Ell pack's array leaves as a flat dict (saved raw, so a restore
+    keeps the exact slot layout)."""
+    return {f: getattr(e, f) for f in _ELL_FIELDS}
+
+
+def ell_from_state(tree: dict, n: int, device) -> Ell:
+    return Ell(**{f: to_device(tree[f], device) for f in _ELL_FIELDS}, n=n)
+
+
+def ell_capacity(n: int, e_cap: int, k: int, row_tile: int = 128) -> int:
+    r = n + -(-e_cap // k)
+    return -(-r // row_tile) * row_tile
+
+
+def _materialized(g: DynGraph) -> torch.Tensor:
+    """Lanes that own a pack slot: every main lane (dead ones keep their
+    slot for a later revival) + occupied diff rows."""
+    return torch.cat([torch.ones((g.main_capacity,), dtype=torch.bool,
+                                 device=g.device), g.d_src < g.n])
+
+
+def pack_ell(g: DynGraph, k: int = 8, row_tile: int = 128) -> Ell:
+    """Repack the edge set (main + diff regions) into row-split ELL
+    grouped by DESTINATION (pull layout — the relax kernel)."""
+    esrc, edst, ew, ealive = g.edge_arrays()
+    return _pack(g.n, esrc, edst, ew, _materialized(g), ealive, k, row_tile)
+
+
+def _pack(n, eother, egroup, ew, emat, ealive, k, row_tile) -> Ell:
+    """Group materialized lanes by ``egroup``; slots hold ``eother``
+    endpoints for alive lanes and the sentinel n for tombstoned ones."""
+    dev = egroup.device
+    E = egroup.shape[0]
+    R = ell_capacity(n, E, k, row_tile)
+
+    # sort materialized lanes by the grouping endpoint; unmaterialized
+    # lanes sink to a sentinel group
+    sdst = torch.where(emat, egroup, n)
+    order = torch.argsort(sdst, stable=True)
+    sdst = sdst[order]
+    salive = ealive[order]
+    ssrc = torch.where(salive, eother[order], n)
+    sw = torch.where(salive, ew[order], 0)
+    # rank within the destination group
+    start = torch.searchsorted(sdst, sdst, side="left", out_int32=True)
+    rank = torch.arange(E, dtype=INT, device=dev) - start
+    # row base per vertex: exclusive cumsum of ceil(indeg/K)
+    indeg = torch.bincount(sdst, minlength=n + 1).to(INT)
+    segs = -(-indeg // k)
+    base = torch.cat([torch.zeros((1,), dtype=INT, device=dev),
+                      cumsum32(segs[:n])])
+    row = base[sdst.clamp(max=n)] + rank // k
+    col = rank % k
+    valid = sdst < n
+    flat = torch.where(valid, row * k + col, R * k)
+
+    ell_src = set_drop(torch.full((R * k,), n, dtype=INT, device=dev), flat,
+                       ssrc)
+    ell_w = set_drop(torch.zeros((R * k,), dtype=INT, device=dev), flat, sw)
+    row2dst = set_drop(torch.full((R,), n, dtype=INT, device=dev),
+                       torch.where(valid, row, R), sdst.clamp(max=n))
+    lane2slot = torch.empty((E,), dtype=INT, device=dev)
+    lane2slot[order] = flat
+    return Ell(ell_src=ell_src.reshape(R, k), ell_w=ell_w.reshape(R, k),
+               row2dst=row2dst, lane2slot=lane2slot, n=n)
+
+
+# ---------------------------------------------------------------------------
+# In-place maintenance: revive / tombstone without repacking
+# ---------------------------------------------------------------------------
+
+def _lane_slots(ell: Ell, lane, active):
+    cap = ell.lane2slot.shape[0]
+    slot = ell.lane2slot[lane.clamp(0, max(cap - 1, 0))]
+    return torch.where(active & (lane < cap), slot, ell.R * ell.K)
+
+
+def patch_ell_tombstone(ell: Ell, lane, mask) -> Ell:
+    """Clear the slots of tombstoned edge lanes (set sentinel src = n);
+    the slot stays reserved for a later revival."""
+    slot = _lane_slots(ell, lane, mask)
+    src = set_drop(ell.ell_src.reshape(-1), slot, ell.n)
+    return dataclasses.replace(ell, ell_src=src.reshape(ell.R, ell.K))
+
+
+def patch_ell_revive(ell: Ell, lane, value, w, mask) -> Ell:
+    """Re-arm the slots of revived lanes with their source and weight; a
+    lane revived twice in one batch keeps its last weight."""
+    slot = _lane_slots(ell, lane, mask)
+    src = set_drop(ell.ell_src.reshape(-1), slot, value)
+    ww = set_drop(ell.ell_w.reshape(-1), slot, w, last_wins=True)
+    return dataclasses.replace(ell, ell_src=src.reshape(ell.R, ell.K),
+                               ell_w=ww.reshape(ell.R, ell.K))
+
+
+def ell_apply_del(ell: Ell, g_prev: DynGraph, src, dst, mask) -> Ell:
+    """A deletion batch against the pack: tombstones only flip slots in
+    place, so no repack is ever needed."""
+    lane, active = update_lanes(g_prev, src, dst, mask)
+    return patch_ell_tombstone(ell, lane, active)
+
+
+def ell_apply_add(ell: Ell, g_prev: DynGraph, g_new: DynGraph,
+                  src, dst, w, mask, slot_value, repack) -> Ell:
+    """An addition batch against the pack.  Revivals resolve against the
+    PRE-update graph; when fresh edges were appended to the diff pool the
+    lane positions moved and ``repack(g_new)`` rebuilds the pack.  The
+    reference's ``lax.cond`` is a branch here: one host sync per batch."""
+    if bool((g_new.d_offsets != g_prev.d_offsets).any()):
+        return repack(g_new)
+    lane, active = update_lanes(g_prev, src, dst, mask)
+    return patch_ell_revive(ell, lane, slot_value, w, active)

@@ -1,0 +1,229 @@
+"""The fused repair kernels of the ΔG hot path (counterpart of
+``repro.kernels.pallas_repair``), each beside its plain PyTorch version.
+
+``fused_relax_rows`` — one launch per SSSP sweep: per ELL row the
+min-plus candidate, the smallest source reaching it, the frontier flag,
+and the frontier row ids compacted inside each block of ``block`` rows
+(sentinel R after each block's count), plus per-block counts.
+
+``merge_pool_sorted`` — the ΔG sorted merge for ``update_csr_add``: one
+merge-path binary search per output slot folds the sorted admitted batch
+into the sorted diff pool; the pool wins ties.
+
+A wrapper takes the plain version only for tensors on the CPU.  For a
+CUDA tensor it launches the kernel in ``csrc/repair.cu`` (built on first
+use by ``_build``) or raises.  ``LAUNCHES`` counts kernel launches, and
+only those.
+
+``repair_config`` keeps the reference's row-block heuristic keyed on
+(n, E_cap, K).  The merge kernel has no block knob: one thread per
+output slot, 256 to a block.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+
+import torch
+
+from repro_torch.graph.csr import INT
+from repro_torch.kernels.ell import ell_capacity
+
+ROW_TILE = 128          # ELL row rounding; a block size that always divides R
+DEFAULT_BLOCK = 256     # rows per CUDA block of fused_relax_rows
+
+LAUNCHES = {"fused_relax_rows": 0, "merge_pool_sorted": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(name: str, dev: torch.device, **tensors) -> None:
+    for arg, (t, dtype) in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, "
+                            f"expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")
+
+
+# ---------------------------------------------------------------------------
+# fused relax: gather → relax → frontier-flag → compact, one launch
+# ---------------------------------------------------------------------------
+
+def _relax_block(R: int, block: int) -> int:
+    return block if R % block == 0 else ROW_TILE
+
+
+def fused_relax_rows_plain(ell_src, ell_w, vals, block: int):
+    """The plain version: same outputs, same per-block compaction."""
+    R, _ = ell_src.shape
+    n = vals.shape[0] - 1
+    bt = _relax_block(R, block)
+    s = ell_src.to(torch.int64)
+    cand = vals[s] + ell_w
+    rmin = cand.min(dim=1).values
+    rarg = torch.where(cand == rmin[:, None], ell_src, n).min(dim=1).values
+    hit = (rmin < vals[n]).reshape(R // bt, bt)
+    pos = torch.cumsum(hit, dim=1, dtype=INT) - 1
+    rowid = torch.arange(R, dtype=INT, device=vals.device).reshape(R // bt, bt)
+    tiles = torch.full((R // bt, bt + 1), R, dtype=INT, device=vals.device)
+    tiles.scatter_(1, torch.where(hit, pos, bt).to(torch.int64), rowid)
+    rows = tiles[:, :bt].reshape(R)
+    return rmin, rarg, rows, hit.sum(dim=1, dtype=INT)
+
+
+def fused_relax_rows(ell_src, ell_w, vals, *, block: int = DEFAULT_BLOCK):
+    """(row_min, row_arg, compacted frontier rows, per-block counts)."""
+    R, K = ell_src.shape
+    if vals.device.type == "cpu":
+        return fused_relax_rows_plain(ell_src, ell_w, vals, block)
+    dev = vals.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_relax_rows: unsupported device {dev}")
+    _check("fused_relax_rows", dev, ell_src=(ell_src, INT),
+           ell_w=(ell_w, INT), vals=(vals, INT))
+    if ell_w.shape != ell_src.shape:
+        raise ValueError("fused_relax_rows: ell_w must match ell_src's shape")
+    bt = _relax_block(R, block)
+    if R % bt or bt % 32 or not 32 <= bt <= 1024:
+        raise ValueError(f"fused_relax_rows: R={R} needs a block of a "
+                         f"multiple of 32 rows that divides it, got {bt}")
+    n = vals.shape[0] - 1
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    row_min = torch.empty((R,), dtype=INT, device=dev)
+    row_arg = torch.empty((R,), dtype=INT, device=dev)
+    rows = torch.empty((R,), dtype=INT, device=dev)
+    counts = torch.empty((R // bt,), dtype=INT, device=dev)
+    err = lib.repro_fused_relax_rows(
+        _ptr(ell_src), _ptr(ell_w), _ptr(vals), _ptr(row_min),
+        _ptr(row_arg), _ptr(rows), _ptr(counts), R, K, n, bt, _stream(dev))
+    _raise_on(err, "fused_relax_rows")
+    LAUNCHES["fused_relax_rows"] += 1
+    return row_min, row_arg, rows, counts
+
+
+# ---------------------------------------------------------------------------
+# ΔG sorted merge: diff pool + admitted batch, one merge-path launch
+# ---------------------------------------------------------------------------
+
+def _merge_iters(length: int) -> int:
+    it = 1
+    while (1 << it) < length + 1:
+        it += 1
+    return it + 1
+
+
+def merge_pool_sorted_plain(d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w,
+                            f_alive, n: int):
+    """The plain version: the same merge-path search, for all slots at once."""
+    D, B = d_src.shape[0], f_src.shape[0]
+    j = torch.arange(D, dtype=INT, device=d_src.device)
+    lo = (j - D).clamp(min=0)
+    hi = j.clamp(max=B)
+    for _ in range(_merge_iters(B)):
+        active = lo < hi
+        mid = (lo + hi) // 2
+        mi = mid.clamp(0, B - 1)
+        pi = (j - 1 - mid).clamp(0, D - 1)
+        ms, md = f_src[mi], f_dst[mi]
+        qs, qd = d_src[pi], d_dst[pi]
+        less = (ms < qs) | ((ms == qs) & (md < qd))
+        lo = torch.where(active & less, mid + 1, lo)
+        hi = torch.where(active & ~less, mid, hi)
+    a = lo
+    ip = j - a
+    a_ok, p_ok = a < B, ip < D
+    a_safe, p_safe = a.clamp(0, B - 1), ip.clamp(0, D - 1)
+    fs, fd = f_src[a_safe], f_dst[a_safe]
+    qs, qd = d_src[p_safe], d_dst[p_safe]
+    take_f = a_ok & (~p_ok | (fs < qs) | ((fs == qs) & (fd < qd)))
+
+    def pick(f, p, fill):
+        return torch.where(take_f, f, torch.where(p_ok, p, fill))
+
+    return (pick(fs, qs, n), pick(fd, qd, 0),
+            pick(f_w[a_safe], d_w[p_safe], 0),
+            pick(f_alive[a_safe], d_alive[p_safe], False))
+
+
+def merge_pool_sorted(d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w,
+                      f_alive, *, n: int):
+    """Merge the sorted diff pool with the sorted admitted batch.
+
+    Both lists are sorted by (src, dst) with sentinel rows (src == n,
+    dst == 0, w == 0, dead) at the end; returns the merged pool
+    ``(d_src, d_dst, d_w, d_alive)`` with the same (D,) shape."""
+    D, B = int(d_src.shape[0]), int(f_src.shape[0])
+    if d_src.device.type == "cpu":
+        return merge_pool_sorted_plain(d_src, d_dst, d_w, d_alive, f_src,
+                                       f_dst, f_w, f_alive, n)
+    dev = d_src.device
+    if dev.type != "cuda":
+        raise ValueError(f"merge_pool_sorted: unsupported device {dev}")
+    b = torch.bool
+    _check("merge_pool_sorted", dev, d_src=(d_src, INT), d_dst=(d_dst, INT),
+           d_w=(d_w, INT), d_alive=(d_alive, b), f_src=(f_src, INT),
+           f_dst=(f_dst, INT), f_w=(f_w, INT), f_alive=(f_alive, b))
+    if any(t.shape != (D,) for t in (d_dst, d_w, d_alive)) or \
+            any(t.shape != (B,) for t in (f_dst, f_w, f_alive)):
+        raise ValueError("merge_pool_sorted: pool arrays must be (D,) and "
+                         "batch arrays (B,)")
+    if D < 1 or B < 1:
+        raise ValueError(f"merge_pool_sorted: needs D, B >= 1, got {D}, {B}")
+    from repro_torch.kernels import _build
+    lib = _build.load()
+    out = [torch.empty((D,), dtype=INT, device=dev) for _ in range(3)]
+    out.append(torch.empty((D,), dtype=b, device=dev))
+    err = lib.repro_merge_pool_sorted(
+        *(_ptr(t) for t in (d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w,
+                            f_alive, *out)),
+        D, B, n, _merge_iters(B), _stream(dev))
+    _raise_on(err, "merge_pool_sorted")
+    LAUNCHES["merge_pool_sorted"] += 1
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# block config keyed on (n, E_cap, K), cached per handle shape
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class RepairConfig:
+    row_block: int      # fused relax rows per block (divides R)
+
+
+_ROW_CANDIDATES = (512, 256, 128)
+
+
+@functools.lru_cache(maxsize=None)
+def repair_config(n: int, e_cap: int, k: int) -> RepairConfig:
+    """Block config for a handle shape, decided once per (n, E_cap, K):
+    the largest candidate that divides R and leaves at least two blocks
+    (ROW_TILE always divides R).  Timing the candidates on the card (the
+    reference's ``measure=True``) waits for a later slice."""
+    R = ell_capacity(n, e_cap, k)
+    for cand in _ROW_CANDIDATES:
+        if R % cand == 0 and R // cand >= 2:
+            return RepairConfig(row_block=cand)
+    return RepairConfig(row_block=ROW_TILE)

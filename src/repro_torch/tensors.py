@@ -1,0 +1,103 @@
+"""Tensor helpers shared by the port: device resolution and the few JAX
+idioms PyTorch has no single call for.
+
+* ``resolve_device`` — every entry point takes ``device=``; ``None``
+  means the card, and asking for the card where there is none raises
+  (the port never falls back to the CPU on its own).
+* ``set_drop`` — ``x.at[idx].set(v, mode="drop")``: lanes whose index
+  lies outside ``[0, len)`` are dropped.  The scatter goes into a buffer
+  one slot longer and the extra slot is sliced away.
+* ``segment_min`` / ``segment_max`` / ``segment_sum`` — ``jax.ops.segment_*``
+  with JAX's fill for empty segments (the dtype's max / min / zero).
+  Integer min, max and sum are exact in any order, so the atomics the
+  card uses for ``scatter_reduce`` / ``index_add_`` stay deterministic.
+* ``cumsum32`` — ``torch.cumsum`` promotes int32 to int64; cast back.
+* ``take`` — a JAX gather ``x[i]``: negative indices count from the end
+  and the rest are clamped into range, where torch would raise (and the
+  card would trap).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` means the card."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the "
+            "CPU")
+    return dev
+
+
+def set_drop(buf: torch.Tensor, idx: torch.Tensor, vals,
+             last_wins: bool = False) -> torch.Tensor:
+    """A new tensor: ``buf`` with ``buf[idx] = vals``, dropping lanes whose
+    index is out of range.
+
+    With ``last_wins`` a duplicated index takes the value of its LAST lane
+    (what XLA's scatter does on the CPU); the card's ``index_put_`` picks
+    no fixed winner, so the losing lanes are redirected to the dropped
+    slot first.  Callers whose duplicate lanes carry equal values leave it
+    off."""
+    L = buf.shape[0]
+    idx = idx.to(torch.int64)
+    idx = torch.where((idx >= 0) & (idx < L), idx, L)
+    if last_wins and idx.numel():
+        lanes = torch.arange(idx.shape[0], device=idx.device)
+        win = torch.full((L + 1,), -1, dtype=torch.int64, device=idx.device)
+        win.scatter_reduce_(0, idx, lanes, "amax")
+        idx = torch.where(win[idx] == lanes, idx, L)
+    out = torch.cat([buf, buf.new_zeros(1)])
+    out[idx] = vals
+    return out[:L]
+
+
+def _segment(vals, seg, num, reduce: str, fill):
+    out = torch.full((num,), fill, dtype=vals.dtype, device=vals.device)
+    return out.scatter_reduce_(0, seg.to(torch.int64), vals, reduce)
+
+
+def segment_min(vals: torch.Tensor, seg: torch.Tensor,
+                num: int) -> torch.Tensor:
+    fill = (torch.iinfo(vals.dtype).max if not vals.dtype.is_floating_point
+            else float("inf"))
+    return _segment(vals, seg, num, "amin", fill)
+
+
+def segment_max(vals: torch.Tensor, seg: torch.Tensor,
+                num: int) -> torch.Tensor:
+    fill = (torch.iinfo(vals.dtype).min if not vals.dtype.is_floating_point
+            else float("-inf"))
+    return _segment(vals, seg, num, "amax", fill)
+
+
+def segment_sum(vals: torch.Tensor, seg: torch.Tensor,
+                num: int) -> torch.Tensor:
+    if vals.dtype.is_floating_point:
+        # atomics add floats in a different order on every run
+        raise NotImplementedError(
+            "deterministic float segment sums come with the PageRank slice "
+            "(ROADMAP Queue 1 item 7)")
+    out = torch.zeros((num,), dtype=vals.dtype, device=vals.device)
+    return out.index_add_(0, seg.to(torch.int64), vals)
+
+
+def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    L = x.shape[0]
+    i = i.to(torch.int64)
+    return x[torch.where(i < 0, i + L, i).clamp(0, L - 1)]
+
+
+def to_device(x, device) -> torch.Tensor:
+    """A tensor or host array (numpy, or anything ``np.array`` takes) on
+    ``device``; host arrays are copied, so read-only buffers are fine."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def cumsum32(x: torch.Tensor) -> torch.Tensor:
+    return torch.cumsum(x, 0, dtype=torch.int32)

@@ -1,0 +1,174 @@
+"""The repair kernels' plain versions against repro's Pallas kernels
+(interpret mode) on the CPU.  The CUDA kernels against their plain
+versions on the card: tests/test_torch_cuda.py.
+
+All outputs are int32 or bool: every comparison is bit-exact."""
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.graph import build_csr as r_build_csr, from_csr as r_from_csr
+from repro.kernels import ops as rops
+from repro.kernels import pallas_repair as RK
+from repro.kernels.ell import pack_ell as r_pack_ell
+from repro_torch.graph import build_csr as t_build_csr, from_csr as t_from_csr
+from repro_torch.graph import diffcsr as td
+from repro_torch.graph.csr import INF_W
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import repair as TK
+from repro_torch.kernels.ell import pack_ell as t_pack_ell
+
+
+R_PACK = jax.jit(r_pack_ell, static_argnames=("k",))
+
+
+def random_ells(seed, n, e, k):
+    rng = np.random.default_rng(seed)
+    edges = rng.integers(0, n, size=(e, 2))
+    edges = edges[edges[:, 0] != edges[:, 1]]
+    w = rng.integers(1, 50, len(edges)).astype(np.int32)
+    ref = R_PACK(r_from_csr(r_build_csr(n, edges, w), 4), k=k)
+    port = t_pack_ell(t_from_csr(t_build_csr(n, edges, w, device="cpu"), 4),
+                      k=k)
+    vals = np.concatenate([rng.integers(0, 1000, n),
+                           [INF_W]]).astype(np.int32)
+    vals[:n][rng.random(n) < 0.3] = INF_W      # a partial frontier
+    return ref, port, vals
+
+
+CASES = [(200, 1000, 4, 128), (300, 2000, 8, 256)]
+
+
+@pytest.fixture(scope="module")
+def relax_refs():
+    """repro's fused_relax_rows and vertex_relax_fused, once per case."""
+    out = {}
+    for n, e, k, block in CASES:
+        ref, port, vals = random_ells(n + e, n, e, k)
+        rows = RK.fused_relax_rows(ref.ell_src, ref.ell_w, jnp.asarray(vals),
+                                   block=block)
+        vert = rops.vertex_relax_fused(ref, jnp.asarray(vals), block=block)
+        out[(n, e, k, block)] = (port, vals, [np.asarray(x) for x in rows],
+                                 [np.asarray(x) for x in vert])
+    return out
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_relax_rows_plain_matches_pallas(relax_refs, case):
+    """row_min, row_arg, the per-block compacted rows and the counts."""
+    port, vals, want, _ = relax_refs[case]
+    got = TK.fused_relax_rows(port.ell_src, port.ell_w,
+                              torch.from_numpy(vals), block=case[3])
+    for name, g, w in zip(("row_min", "row_arg", "rows", "counts"), got,
+                          want):
+        assert g.dtype == torch.int32, name
+        assert np.array_equal(g.numpy(), w), name
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_vertex_relax_fused_matches(relax_refs, case):
+    port, vals, _, want = relax_refs[case]
+    got = tops.vertex_relax_fused(port, torch.from_numpy(vals),
+                                  block=case[3])
+    for name, g, w in zip(("vmin", "parent", "hit"), got, want):
+        assert np.array_equal(g.numpy(), w), name
+
+
+def test_relax_compaction_invariants():
+    """Frontier row ids packed to each block's prefix (sentinel R after
+    the count), per-block counts, and every hit row listed once."""
+    _, port, vals = random_ells(5, 64, 256, 8)
+    block = 128
+    rmin, _, rows, cnts = TK.fused_relax_rows(
+        port.ell_src, port.ell_w, torch.from_numpy(vals), block=block)
+    R = port.R
+    hit_rows = np.nonzero(rmin.numpy() < INF_W)[0]
+    rows, got = rows.numpy(), []
+    for t in range(R // block):
+        c = int(cnts[t])
+        seg = rows[t * block:(t + 1) * block]
+        assert (seg[:c] < R).all() and (seg[c:] == R).all(), t
+        got.extend(seg[:c].tolist())
+    assert sorted(got) == hit_rows.tolist()
+
+
+def merge_inputs(seed, n=40, D=24, B=12):
+    """A sorted diff pool (some rows dead, vacant rows last) and a sorted
+    admitted batch (alive prefix, sentinel rows after), as numpy arrays;
+    some batch keys tie with pool keys."""
+    rng = np.random.default_rng(seed)
+    pk = np.unique(rng.integers(0, n * n, int(rng.integers(1, D))))
+    fk = np.unique(np.concatenate([rng.integers(0, n * n, B - 3),
+                                   rng.choice(pk, 2)]))[:B - 1]
+
+    def rows(keys, size, alive):
+        used = np.arange(size) < len(keys)
+        k = np.concatenate([keys, np.zeros(size - len(keys), np.int64)])
+        return [np.where(used, k // n, n).astype(np.int32),
+                np.where(used, k % n, 0).astype(np.int32),
+                np.where(used, rng.integers(1, 50, size), 0).astype(np.int32),
+                used & alive]
+
+    return (rows(pk, D, rng.random(D) < 0.8)
+            + rows(fk, B, np.ones(B, bool)))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_merge_plain_matches_pallas(seed):
+    """One merge-path search per slot; the pool wins ties."""
+    arrays = merge_inputs(seed)
+    n = 40
+    want = RK.merge_pool_sorted(*[jnp.asarray(a) for a in arrays], n=n)
+    got = TK.merge_pool_sorted(*[torch.from_numpy(a) for a in arrays], n=n)
+    for g, w in zip(got, want):
+        w = np.array(w)
+        assert g.dtype == torch.from_numpy(w).dtype
+        assert np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_merge_matches_scatter_path(seed):
+    """update_csr_add with the merge plugged in == the scatter path,
+    dedupe, revivals and overflow included (tests/test_kernels.py)."""
+    rng = np.random.default_rng(seed)
+    n = 40
+    e = rng.integers(0, n, size=(120, 2))
+    e = e[e[:, 0] != e[:, 1]]
+    g = t_from_csr(t_build_csr(n, e, rng.integers(1, 50, len(e)),
+                               device="cpu"), int(rng.integers(3, 24)))
+    for step in range(4):
+        B = int(rng.integers(2, 12))
+        qs, qd = (torch.from_numpy(rng.integers(0, n, B).astype(np.int32))
+                  for _ in range(2))
+        qw = torch.from_numpy(rng.integers(1, 50, B).astype(np.int32))
+        mask = torch.from_numpy(rng.random(B) < 0.9)
+        g1 = td.update_csr_add(g, qs, qd, qw, mask)
+        g2 = td.update_csr_add(g, qs, qd, qw, mask,
+                               pool_merge=TK.merge_pool_sorted)
+        for f in ("d_src", "d_dst", "d_w", "d_alive", "d_offsets", "w",
+                  "alive", "overflow"):
+            assert torch.equal(getattr(g1, f), getattr(g2, f)), (step, f)
+        g = g1
+        if step == 1:
+            g = td.update_csr_del(g, qs[: B // 2], qd[: B // 2])
+
+
+def test_repair_config_matches_heuristic():
+    for n, e_cap, k in [(100, 700, 8), (4096, 30000, 8), (65536, 10**6, 8),
+                        (300, 2000, 4), (4194304, 65894701, 8)]:
+        want = RK._heuristic_config(n, e_cap, k)
+        got = TK.repair_config(n, e_cap, k)
+        assert got.row_block == want.row_block
+        assert TK.repair_config(n, e_cap, k) is got
+
+
+def test_cpu_wrappers_count_no_launch():
+    """On CPU tensors the wrappers run the plain versions: no launch."""
+    TK.reset_launches()
+    _, port, vals = random_ells(1, 64, 256, 8)
+    TK.fused_relax_rows(port.ell_src, port.ell_w, torch.from_numpy(vals))
+    arrays = [torch.from_numpy(a) for a in merge_inputs(0)]
+    TK.merge_pool_sorted(*arrays, n=40)
+    assert TK.LAUNCHES == {"fused_relax_rows": 0, "merge_pool_sorted": 0}
