@@ -36,6 +36,9 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+# the main path: RMAT degree 16, 1% of the edges updated, batches of
+# 65,536 updates (the admission guard's DEFAULT_MAX_BATCH)
+DEGREE, PERCENT, BATCH = 16, 1.0, 65536
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 L2_FLUSH_BYTES = 256 << 20
@@ -184,9 +187,6 @@ def dijkstra_dist(np, csr_host, stream, n, inf_w):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
-    ap.add_argument("--degree", type=int, default=16)
-    ap.add_argument("--percent", type=float, default=1.0)
-    ap.add_argument("--batch", type=int, default=65536)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
                     help="rerun the cuda path under torch.profiler and "
@@ -205,8 +205,8 @@ def main(argv=None) -> int:
     from repro_torch.kernels import repair as FK
 
     # -- 1. device + build -----------------------------------------------
-    card = nvidia_smi()
-    log(f"[device] {card} | torch {torch.__version__} cuda "
+    log(nvidia_smi())
+    log(f"[device] torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _build.load()
@@ -220,20 +220,20 @@ def main(argv=None) -> int:
 
     # -- 2. main path on the cuda backend ----------------------------------
     with clock() as t_gen:
-        n, edges, w = repro_torch.rmat_graph(args.scale, args.degree, seed=0)
+        n, edges, w = repro_torch.rmat_graph(args.scale, DEGREE, seed=0)
         csr = repro_torch.build_csr(n, edges, w, device=DEV)
         del edges, w
-        stream = repro_torch.random_updates(csr, percent=args.percent, seed=1)
-    nb = stream.num_batches(args.batch)
-    log(f"[graph] rmat scale {args.scale} degree {args.degree}: n={n} "
+        stream = repro_torch.random_updates(csr, percent=PERCENT, seed=1)
+    nb = stream.num_batches(BATCH)
+    log(f"[graph] rmat scale {args.scale} degree {DEGREE}: n={n} "
         f"E={csr.num_edges} | stream: {stream.num_adds} adds, "
-        f"{stream.num_dels} dels, {nb} batches of {args.batch} | "
+        f"{stream.num_dels} dels, {nb} batches of {BATCH} | "
         f"generation {t_gen.s:.2f} s")
 
     torch.cuda.reset_peak_memory_stats()
     FK.reset_launches()
     sess, props, (t_prep, t_static, t_stream) = run_sssp(
-        repro_torch, sssp, csr, stream, "cuda", args.batch, clock)
+        repro_torch, sssp, csr, stream, "cuda", BATCH, clock)
     launches = dict(FK.LAUNCHES)
     ups = (stream.num_adds + stream.num_dels) / t_stream
     log(f"[cuda] prepare {t_prep:.3f} s | static_sssp {t_static:.3f} s | "
@@ -250,7 +250,7 @@ def main(argv=None) -> int:
                              f"{nb} add batches")
 
     if args.profile:
-        profile_stream(torch, repro_torch, sssp, csr, stream, args.batch)
+        profile_stream(torch, repro_torch, sssp, csr, stream, BATCH)
 
     # -- 3. kernels against their plain versions, main-path shapes ---------
     h = sess.handle
@@ -286,7 +286,7 @@ def main(argv=None) -> int:
         shape=dict(R=R, K=K, n=n, block=cfg.row_block)))
 
     rng = np.random.default_rng(2)
-    B = args.batch
+    B = BATCH
     pool = (g.d_src, g.d_dst, g.d_w, g.d_alive)
     D = g.diff_capacity
     pool_keys = (g.d_src.long() * n + g.d_dst.long()).cpu().numpy()
@@ -333,7 +333,7 @@ def main(argv=None) -> int:
     del sess, h, ell, props
     torch.cuda.empty_cache()
     tsess, tprops, (tp, ts, tt) = run_sssp(repro_torch, sssp, csr, stream,
-                                           "torch", args.batch, clock)
+                                           "torch", BATCH, clock)
     log(f"[torch] prepare {tp:.3f} s | static_sssp {ts:.3f} s | stream "
         f"{tt:.3f} s")
     for k in ("dist", "parent"):
@@ -358,7 +358,6 @@ def main(argv=None) -> int:
         f"reachable of {n}; {t_dij.s:.1f} s)")
 
     print(json.dumps({"kernels": kernels}))
-    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

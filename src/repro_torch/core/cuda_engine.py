@@ -123,8 +123,9 @@ class CudaEngine(TorchEngine):
         return kinds in (["min"], ["argmin", "min"])
 
     def _run_sweep(self, h, sw: EdgeSweep, props: Props) -> Props:
-        if isinstance(h, DynGraph):  # fallback path re-entered with raw graph
-            return super()._run_sweep(h, sw, props)
+        if not isinstance(h, CudaHandle):
+            raise TypeError(f"CudaEngine sweeps take a CudaHandle (graph "
+                            f"plus ELL pack), got {type(h).__name__}")
         if not self._kernel_compatible(sw):
             return super()._run_sweep(h.g, sw, props)
         return self._run_sweep_fused(h, sw, props)

@@ -229,3 +229,17 @@ def test_engine_helpers_match():
     want = r_sssp._relax_sweep().read_set(r_sssp.init_props(r, sc.src))
     assert t_sssp._relax_sweep().read_set(props) == want == {"dist",
                                                              "modified"}
+
+
+def test_cuda_engine_sweep_refuses_a_bare_graph():
+    """The cuda engine sweeps only over its handle (graph plus ELL pack):
+    a bare DynGraph raises instead of taking the plain segment path."""
+    sc = scenario("batch1")
+    e = repro_torch.make_engine("cuda", device="cpu")
+    h = e.prepare(repro_torch.build_csr(sc.n, sc.edges, sc.w, device="cpu"),
+                  8)
+    props = t_sssp.init_props(e, sc.src)
+    with pytest.raises(TypeError, match="CudaHandle"):
+        e._run_sweep(h.g, t_sssp._relax_sweep(), props)
+    assert e._run_sweep(h, t_sssp._relax_sweep(), props)["dist"].shape == \
+        (sc.n,)
