@@ -8,19 +8,40 @@
 Phases (any failure exits non-zero):
 
 1. Device: the card's name and power limit, the CUDA version, and the
-   build of the kernels in ``src/repro_torch/csrc`` with ``nvcc``.
-2. Main path: dynamic SSSP through ``repro_torch.bind_graph(csr,
-   backend="cuda")`` — ``static_sssp`` from vertex 0, then ``stream_step``
-   over ``random_updates(csr, percent=1, seed=1)`` in batches of 65,536 —
-   with every kernel's launch count set to 0 just before and read just
-   after; each kernel must have launched.
+   build of the kernels in ``src/repro_torch/csrc`` with ``nvcc`` (one
+   process per source, all at once).
+2. Paths, each driven through ``repro_torch.bind_graph`` over the same
+   graph and ``random_updates(csr, percent=1, seed=1)`` in batches of
+   65,536, each in a window of its own: every kernel's launch count and
+   the peak memory are reset just before it and read just after.
+   a. SSSP on ``cuda`` — ``static_sssp`` from vertex 0, then
+      ``stream_step``: ``fused_relax_rows`` and ``merge_pool_sorted``
+      (once per add batch) must launch, the chained kernels must not.
+   b. PageRank on ``cuda`` — ``static_pr``, then ``make_stream_step``
+      with the conformance knobs (beta 1e-4, delta 0.85, 100 sweeps at
+      most): ``fused_spmv_rows``, ``segment_sum_sorted`` (the vertex
+      combine) and ``merge_pool_sorted`` (once per add batch) must
+      launch, the chained kernels must not.
+   c. SSSP on ``cuda_chained`` (``relax_rowmin`` and ``relax_rowargmin``
+      must launch), then PageRank on it (``spmv_rowsum`` and
+      ``segment_sum_sorted`` must launch); neither runs a fused kernel
+      or the other algorithm's chained kernels.
+   The ``torch`` backend's runs (step 4) launch no kernel but the float
+   segment sum.
 3. Kernels against their plain PyTorch versions on the card, at the
-   shapes of that run, bit for bit, with their times beside the bound
-   (bytes each input read once and each output written once, over
-   3.35 TB/s) and a one-call PyTorch yardstick where one exists.
-4. Correctness of the run: ``dist``, ``parent`` and every DynGraph array
-   equal the ``torch`` backend's on the same card, and ``dist`` equals
-   scipy's Dijkstra over the post-update edge set.
+   shapes of those runs, bit for bit (float row sums too: both add in one
+   fixed order), with their times beside the bound (bytes each input read
+   once and each output written once, over 3.35 TB/s, or operations over
+   the float32 peak, whichever is larger) and a one-call PyTorch
+   yardstick where one exists.
+4. Correctness of the runs: SSSP ``dist``, ``parent`` and every DynGraph
+   array equal the ``torch`` backend's, ``cuda_chained``'s dist and parent
+   equal ``cuda``'s, and dist equals scipy's Dijkstra over the
+   post-update edge set.  PageRank on ``cuda`` is bit-identical across
+   two runs and to ``cuda_chained``, close to the ``torch`` backend
+   (another summation order: max 1e-6 and 1e-4 of max(pr), L1 1e-4 and
+   1e-5 of sum(pr)), and within a stated L1 bound of a float64 power
+   iteration by scipy over the post-update edge set.
 
 The last two lines are the kernels' JSON record and the device record.
 """
@@ -36,9 +57,11 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# the main path: RMAT degree 16, 1% of the edges updated, batches of
-# 65,536 updates (the admission guard's DEFAULT_MAX_BATCH)
+# the paths: RMAT degree 16, 1% of the edges updated, batches of 65,536
+# updates (the admission guard's DEFAULT_MAX_BATCH); PageRank's knobs are
+# tests/conformance.py's (beta, delta, max_iter)
 DEGREE, PERCENT, BATCH = 16, 1.0, 65536
+PR_KNOBS = (1e-4, 0.85, 100)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 L2_FLUSH_BYTES = 256 << 20
@@ -94,14 +117,19 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def max_abs_err(torch, got, want) -> int:
-    err = 0
+def max_abs_err(torch, got, want) -> float:
+    """The largest |got - want| over the outputs; raises unless every
+    output is bit-identical (same shape, dtype and bits)."""
+    err = 0.0
     for a, b in zip(got, want):
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"shape/dtype mismatch {a.shape} {a.dtype} "
                                  f"vs {b.shape} {b.dtype}")
-        d = (a.to(torch.int64) - b.to(torch.int64)).abs().max()
-        err = max(err, int(d))
+        wide = torch.float64 if a.dtype.is_floating_point else torch.int64
+        err = max(err, float((a.to(wide) - b.to(wide)).abs().max()))
+        if not torch.equal(a, b):
+            raise AssertionError(f"outputs differ from the plain version "
+                                 f"(max abs err {err})")
     return err
 
 
@@ -111,23 +139,103 @@ def bound(bytes_moved: int, ops: int):
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
 
-def run_sssp(repro_torch, sssp, csr, stream, backend, batch, clock):
-    """Bind, prepare, static SSSP from vertex 0, then the stream; returns
-    the session, the final props and the three wall times."""
+def check_kernel(torch, args, flush, name, source, replaces, launches, fn,
+                 plain, moved, ops, library=None, plain_reps=None,
+                 **shape) -> dict:
+    """Hold a kernel against its plain version on the same inputs (bit for
+    bit), then time both and the library yardstick (the plain version over
+    ``plain_reps`` launches where it is too slow for ``--reps``)."""
+    got, want = fn(), plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    try:
+        err = max_abs_err(torch, got, want)
+    except AssertionError as exc:
+        raise AssertionError(f"{name}: {exc}") from None
+    b_ms, b_by = bound(moved + nbytes(*got), ops)
+    rec = dict(name=name, route="cuda", source=source, replaces=replaces,
+               launches=launches, max_abs_err=err,
+               ms=median_ms(torch, fn, args.reps, flush),
+               plain_ms=median_ms(torch, plain, plain_reps or args.reps,
+                                  flush),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=(None if library is None else
+                           median_ms(torch, library, args.reps, flush)),
+               shape=shape)
+    log(f"[kernel] {name}: {rec['ms']:.4f} ms (plain {rec['plain_ms']:.4f}, "
+        f"bound {b_ms:.4f} by {b_by}, library {rec['library_ms']}) "
+        f"bit-exact, {launches} launches on its path | {shape}")
+    return rec
+
+
+class Launches:
+    """Every kernel module's launch counts, reset and read together."""
+
+    def __init__(self, *mods):
+        self.mods = mods
+
+    def reset(self):
+        for m in self.mods:
+            m.reset_launches()
+
+    def read(self) -> dict:
+        out = {}
+        for m in self.mods:
+            out.update(m.LAUNCHES)
+        return out
+
+
+def run_path(repro_torch, csr, stream, backend, static, step, clock):
+    """Bind, prepare, the static run, then the stream; returns the
+    session, the final props and the three wall times."""
     sess = repro_torch.bind_graph(csr, backend=backend,
                                   capacity=2 * stream.num_adds, device=DEV)
     with clock() as t_prep:
         sess.handle                             # prepare: pool + ELL pack
     with clock() as t_static:
-        props = sess.call(sssp.static_sssp, 0)
+        props = sess.call(*static)
     with clock() as t_stream:
-        props = sess.run_stream(stream, batch, sssp.stream_step, props)
+        props = sess.run_stream(stream, BATCH, step, props)
     return sess, props, (t_prep.s, t_static.s, t_stream.s)
 
 
-def profile_stream(torch, repro_torch, sssp, csr, stream, batch):
-    """The cuda path once more under torch.profiler: device time by kernel
-    for static_sssp and for the stream, and the device's busy share of
+def drive(torch, repro_torch, counts, csr, stream, tag, backend, static,
+          step, clock, launched=(), silent=(), per_batch=None):
+    """One path in a window of its own: every launch count and the peak
+    memory reset just before it, the counts read just after; prints its
+    times and launches and checks which kernels it ran."""
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    sess, props, times = run_path(repro_torch, csr, stream, backend, static,
+                                  step, clock)
+    launches = counts.read()
+    ups = (stream.num_adds + stream.num_dels) / times[2]
+    log(f"[{tag}] prepare {times[0]:.3f} s | static {times[1]:.3f} s | "
+        f"stream {times[2]:.3f} s ({ups:.0f} updates/s) | launches "
+        f"{ {k: v for k, v in launches.items() if v} } | peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(launches, launched, silent, per_batch)
+    return sess, props, launches
+
+
+def require(launches, launched=(), silent=(), per_batch=None):
+    for name in launched:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} never launched on its path")
+    for name in silent:
+        if launches[name]:
+            raise AssertionError(f"kernel {name} launched {launches[name]} "
+                                 f"times on a path that must not use it")
+    if per_batch is not None and launches["merge_pool_sorted"] != per_batch:
+        raise AssertionError(f"merge_pool_sorted launched "
+                             f"{launches['merge_pool_sorted']} times for "
+                             f"{per_batch} add batches")
+
+
+def profile_path(torch, repro_torch, csr, stream, static, step, tag):
+    """A cuda path once more under torch.profiler: device time by kernel
+    for the static run and for the stream, and the device's busy share of
     each window's wall time (kernel rows only: an operator's row repeats
     its kernels' time)."""
     from torch.autograd import DeviceType
@@ -136,16 +244,15 @@ def profile_stream(torch, repro_torch, sssp, csr, stream, batch):
                                   capacity=2 * stream.num_adds, device=DEV)
     sess.handle
     props = None
-    for name in ("static_sssp", "stream"):
+    for name in ("static", "stream"):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             if props is None:
-                props = sess.call(sssp.static_sssp, 0)
+                props = sess.call(*static)
             else:
-                props = sess.run_stream(stream, batch, sssp.stream_step,
-                                        props)
+                props = sess.run_stream(stream, BATCH, step, props)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         rows = [r for r in prof.key_averages()
@@ -154,34 +261,59 @@ def profile_stream(torch, repro_torch, sssp, csr, stream, batch):
                                    getattr(r, "self_cuda_time_total", 0))
         busy = sum(dev_us(r) for r in rows) / 1e6
         launches = sum(r.count for r in rows)
-        log(f"[profile] {name}: wall {wall:.3f} s, device busy {busy:.3f} s "
-            f"({100 * busy / wall:.1f}%), {launches} kernel launches of "
-            f"{len(rows)} kinds")
+        log(f"[profile] {tag} {name}: wall {wall:.3f} s, device busy "
+            f"{busy:.3f} s ({100 * busy / wall:.1f}%), {launches} kernel "
+            f"launches of {len(rows)} kinds")
         for r in sorted(rows, key=dev_us, reverse=True)[:12]:
             log(f"[profile]   {dev_us(r) / 1e3:10.2f} ms  {r.count:6d} calls"
                 f"  {r.key[:100]}")
     del sess
 
 
-def dijkstra_dist(np, csr_host, stream, n, inf_w):
-    """scipy's Dijkstra from vertex 0 over (base − dels) ∪ adds, built with
-    int64 key arithmetic from host arrays."""
+def edges_after(torch, csr, stream, n):
+    """(src, dst, w) of (base − dels) ∪ adds as host arrays, built on the
+    card with int64 key arithmetic (on the host, numpy's isin and unique
+    over 65M keys take minutes)."""
+    dels = torch.from_numpy(stream.dels).to(DEV).long()
+    a = torch.from_numpy(stream.adds).to(DEV)
+    keep = ~torch.isin(csr.src.long() * n + csr.dst,
+                       dels[:, 0] * n + dels[:, 1])
+    s = torch.cat([csr.src[keep], a[:, 0]])
+    d = torch.cat([csr.dst[keep], a[:, 1]])
+    ww = torch.cat([csr.w[keep], a[:, 2].clamp(min=1)])
+    k2 = s.long() * n + d
+    if torch.unique(k2).numel() != k2.numel():
+        raise AssertionError("post-update edge set has duplicate keys")
+    return tuple(x.cpu().numpy() for x in (s, d, ww))
+
+
+def dijkstra_dist(np, edges, n, inf_w):
+    """scipy's Dijkstra from vertex 0."""
     from scipy.sparse import csr_matrix
     from scipy.sparse.csgraph import dijkstra
-    src, dst, w = csr_host
-    key = src.astype(np.int64) * n + dst
-    dkey = stream.dels[:, 0].astype(np.int64) * n + stream.dels[:, 1]
-    keep = ~np.isin(key, dkey)
-    a = stream.adds
-    s = np.concatenate([src[keep], a[:, 0]])
-    d = np.concatenate([dst[keep], a[:, 1]])
-    ww = np.concatenate([w[keep], np.maximum(a[:, 2], 1)]).astype(np.float64)
-    k2 = s.astype(np.int64) * n + d
-    if np.unique(k2).shape[0] != k2.shape[0]:
-        raise AssertionError("post-update edge set has duplicate keys")
-    g = csr_matrix((ww, (s, d)), shape=(n, n))
+    s, d, w = edges
+    g = csr_matrix((w.astype(np.float64), (s, d)), shape=(n, n))
     dist = dijkstra(g, directed=True, indices=0)
     return np.where(np.isinf(dist), inf_w, dist).astype(np.int64)
+
+
+def pagerank_f64(np, edges, n, delta, tol=1e-13, max_iter=1000):
+    """The fixed point of the port's PageRank (pr = (1-delta)/n + delta ·
+    sum over in-edges of pr[u]/outdeg[u], dangling mass dropped), by a
+    float64 power iteration with scipy, to an L1 step below ``tol``."""
+    from scipy.sparse import csr_matrix
+    s, d, _ = edges
+    outdeg = np.bincount(s, minlength=n).astype(np.float64)
+    inv = np.where(outdeg > 0, 1.0 / np.maximum(outdeg, 1.0), 0.0)
+    pull = csr_matrix((np.ones(s.shape[0]), (d, s)), shape=(n, n))
+    x = np.full(n, 1.0 / n)
+    for _ in range(max_iter):
+        nxt = (1.0 - delta) / n + delta * (pull @ (x * inv))
+        step = np.abs(nxt - x).sum()
+        x = nxt
+        if step < tol:
+            break
+    return x
 
 
 def main(argv=None) -> int:
@@ -189,7 +321,7 @@ def main(argv=None) -> int:
     ap.add_argument("--scale", type=int, default=22)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
-                    help="rerun the cuda path under torch.profiler and "
+                    help="rerun the cuda paths under torch.profiler and "
                          "print where the device time goes")
     args = ap.parse_args(argv)
 
@@ -199,26 +331,39 @@ def main(argv=None) -> int:
         return 2
     import numpy as np
     import repro_torch
-    from repro_torch.algos import sssp
+    from repro_torch.algos import pagerank, sssp
     from repro_torch.graph.csr import INF_W
     from repro_torch.kernels import _build
+    from repro_torch.kernels import csr_relax as CK
+    from repro_torch.kernels import ops as kops
     from repro_torch.kernels import repair as FK
+    from repro_torch.kernels import segment as SK
 
+    stamps = [("start", time.perf_counter())]
+    mark = lambda name: stamps.append((name, time.perf_counter()))
     # -- 1. device + build -----------------------------------------------
     log(nvidia_smi())
     log(f"[device] torch {torch.__version__} cuda "
         f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
     _build.load()
-    log(f"[build] {os.path.relpath(_build.BUILD_INFO['path'], ROOT)} in "
-        f"{time.perf_counter() - t0:.2f} s (nvcc "
+    log(f"[build] {len(_build.BUILD_INFO['paths'])} libraries in "
+        f"{time.perf_counter() - t0:.2f} s (nvcc, in parallel: "
         f"{_build.BUILD_INFO['seconds']} s)")
-    for line in _build.BUILD_INFO["log"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            log(f"[ptxas] {line.strip()}")
+    for src, text in _build.BUILD_INFO["logs"].items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"[ptxas] {src}: {line.strip()}")
+    mark("build")
     clock = lambda: Timer(torch)
+    counts = Launches(FK, CK, SK)
+    FUSED = ("fused_relax_rows", "fused_spmv_rows", "merge_pool_sorted")
+    CHAINED = ("relax_rowmin", "spmv_rowsum", "relax_rowargmin")
+    sssp_static, sssp_step = (sssp.static_sssp, 0), sssp.stream_step
+    pr_static = (pagerank.static_pr, *PR_KNOBS)
+    pr_step = pagerank.make_stream_step(*PR_KNOBS)
 
-    # -- 2. main path on the cuda backend ----------------------------------
+    # -- 2. the paths --------------------------------------------------------
     with clock() as t_gen:
         n, edges, w = repro_torch.rmat_graph(args.scale, DEGREE, seed=0)
         csr = repro_torch.build_csr(n, edges, w, device=DEV)
@@ -229,133 +374,274 @@ def main(argv=None) -> int:
         f"E={csr.num_edges} | stream: {stream.num_adds} adds, "
         f"{stream.num_dels} dels, {nb} batches of {BATCH} | "
         f"generation {t_gen.s:.2f} s")
-
-    torch.cuda.reset_peak_memory_stats()
-    FK.reset_launches()
-    sess, props, (t_prep, t_static, t_stream) = run_sssp(
-        repro_torch, sssp, csr, stream, "cuda", BATCH, clock)
-    launches = dict(FK.LAUNCHES)
-    ups = (stream.num_adds + stream.num_dels) / t_stream
-    log(f"[cuda] prepare {t_prep:.3f} s | static_sssp {t_static:.3f} s | "
-        f"stream {t_stream:.3f} s ({ups:.0f} updates/s) | launches "
-        f"{launches} | peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-        f" GiB")
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} never launched on the main "
-                                 f"path")
-    if launches["merge_pool_sorted"] != nb:
-        raise AssertionError(f"merge_pool_sorted launched "
-                             f"{launches['merge_pool_sorted']} times for "
-                             f"{nb} add batches")
-
-    if args.profile:
-        profile_stream(torch, repro_torch, sssp, csr, stream, BATCH)
-
-    # -- 3. kernels against their plain versions, main-path shapes ---------
-    h = sess.handle
-    g, ell = h.g, h.ell
-    cfg = sess.engine._config(g)
-    dist = props["dist"]
-    vals = torch.cat([torch.where(dist < INF_W, dist, INF_W).int(),
-                      dist.new_full((1,), INF_W)])
+    mark("graph")
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
     kernels = []
 
-    relax = lambda: FK.fused_relax_rows(ell.ell_src, ell.ell_w, vals,
-                                        block=cfg.row_block)
-    relax_plain = lambda: FK.fused_relax_rows_plain(
-        ell.ell_src, ell.ell_w, vals, cfg.row_block)
-    got, want = relax(), relax_plain()
-    torch.cuda.synchronize()
-    err = max_abs_err(torch, got, want)
-    if err:
-        raise AssertionError(f"fused_relax_rows differs from its plain "
-                             f"version: max abs err {err}")
+    # 2a. SSSP on cuda
+    sess, props, sssp_launches = drive(
+        torch, repro_torch, counts, csr, stream, "sssp cuda", "cuda",
+        sssp_static, sssp_step, clock, launched=("fused_relax_rows",),
+        silent=("fused_spmv_rows",) + CHAINED, per_batch=nb)
+    if args.profile:
+        profile_path(torch, repro_torch, csr, stream, sssp_static,
+                     sssp_step, "sssp")
+
+    h = sess.handle
+    g, ell = h.g, h.ell
+    cfg = sess.engine._config(g)
     R, K = ell.R, ell.K
-    b_ms, b_by = bound(nbytes(ell.ell_src, ell.ell_w, vals, *got),
-                       3 * R * K)
-    kernels.append(dict(
-        name="fused_relax_rows", route="cuda",
-        source="src/repro_torch/csrc/repair.cu",
-        replaces="src/repro/kernels/pallas_repair.py:102",
-        launches=launches["fused_relax_rows"], max_abs_err=err,
-        ms=median_ms(torch, relax, args.reps, flush),
-        plain_ms=median_ms(torch, relax_plain, args.reps, flush),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=dict(R=R, K=K, n=n, block=cfg.row_block)))
+    dist = props["dist"]
+    vals = torch.cat([torch.where(dist < INF_W, dist, INF_W).int(),
+                      dist.new_full((1,), INF_W)])
+    kernels.append(check_kernel(
+        torch, args, flush, "fused_relax_rows",
+        "src/repro_torch/csrc/repair.cu",
+        "src/repro/kernels/pallas_repair.py:102",
+        sssp_launches["fused_relax_rows"],
+        lambda: FK.fused_relax_rows(ell.ell_src, ell.ell_w, vals,
+                                    block=cfg.row_block),
+        lambda: FK.fused_relax_rows_plain(ell.ell_src, ell.ell_w, vals,
+                                          cfg.row_block),
+        nbytes(ell.ell_src, ell.ell_w, vals), 3 * R * K,
+        R=R, K=K, n=n, block=cfg.row_block))
 
     rng = np.random.default_rng(2)
-    B = BATCH
     pool = (g.d_src, g.d_dst, g.d_w, g.d_alive)
     D = g.diff_capacity
     pool_keys = (g.d_src.long() * n + g.d_dst.long()).cpu().numpy()
-    fk = np.unique(rng.integers(0, n, size=2 * B) * np.int64(n)
-                   + rng.integers(0, n, size=2 * B))
-    fk = fk[~np.isin(fk, pool_keys)][:B]
-    if fk.shape[0] != B:
-        raise AssertionError(f"drew {fk.shape[0]} fresh edges, wanted {B}")
+    fk = np.unique(rng.integers(0, n, size=2 * BATCH) * np.int64(n)
+                   + rng.integers(0, n, size=2 * BATCH))
+    fk = fk[~np.isin(fk, pool_keys)][:BATCH]
+    if fk.shape[0] != BATCH:
+        raise AssertionError(f"drew {fk.shape[0]} fresh edges, wanted "
+                             f"{BATCH}")
     fresh = [torch.from_numpy(x.astype(np.int32)).to(DEV)
-             for x in (fk // n, fk % n, rng.integers(1, 100, size=B))]
-    fresh.append(torch.ones(B, dtype=torch.bool, device=DEV))
-    merge = lambda: FK.merge_pool_sorted(*pool, *fresh, n=n)
-    merge_plain = lambda: FK.merge_pool_sorted_plain(*pool, *fresh, n)
-    got, want = merge(), merge_plain()
-    torch.cuda.synchronize()
-    err = max_abs_err(torch, got, want)
-    if err:
-        raise AssertionError(f"merge_pool_sorted differs from its plain "
-                             f"version: max abs err {err}")
+             for x in (fk // n, fk % n, rng.integers(1, 100, size=BATCH))]
+    fresh.append(torch.ones(BATCH, dtype=torch.bool, device=DEV))
     keys = torch.cat([g.d_src.long() * (n + 1) + g.d_dst.long(),
                       fresh[0].long() * (n + 1) + fresh[1].long()])
-    lib = lambda: torch.sort(keys, stable=True)
-    iters = FK._merge_iters(B)
-    b_ms, b_by = bound(nbytes(*pool, *fresh, *got), D * iters * 6)
-    kernels.append(dict(
-        name="merge_pool_sorted", route="cuda",
-        source="src/repro_torch/csrc/repair.cu",
-        replaces="src/repro/kernels/pallas_repair.py:200",
-        launches=launches["merge_pool_sorted"], max_abs_err=err,
-        ms=median_ms(torch, merge, args.reps, flush),
-        plain_ms=median_ms(torch, merge_plain, args.reps, flush),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=median_ms(torch, lib, args.reps, flush),
-        shape=dict(D=D, B=B, n=n, used=int((g.d_src < n).sum()))))
-    for k in kernels:
-        log(f"[kernel] {k['name']}: {k['ms']:.4f} ms (plain "
-            f"{k['plain_ms']:.4f}, bound {k['bound_ms']:.4f} by "
-            f"{k['bound_by']}, library {k['library_ms']}) bit-exact, "
-            f"{k['launches']} launches on the main path")
-    del flush, vals, keys, got, want
-
-    # -- 4. correctness: torch backend on the same card, then Dijkstra -----
-    cuda_g, cuda_props = g, {k: props[k] for k in ("dist", "parent")}
-    del sess, h, ell, props
+    kernels.append(check_kernel(
+        torch, args, flush, "merge_pool_sorted",
+        "src/repro_torch/csrc/repair.cu",
+        "src/repro/kernels/pallas_repair.py:200",
+        sssp_launches["merge_pool_sorted"],
+        lambda: FK.merge_pool_sorted(*pool, *fresh, n=n),
+        lambda: FK.merge_pool_sorted_plain(*pool, *fresh, n),
+        nbytes(*pool, *fresh), D * FK._merge_iters(BATCH) * 6,
+        library=lambda: torch.sort(keys, stable=True),
+        D=D, B=BATCH, n=n, used=int((g.d_src < n).sum())))
+    cuda_g = g
+    sssp_cuda = {k: props[k] for k in ("dist", "parent")}
+    del sess, h, ell, props, vals, keys, pool, fresh, dist
     torch.cuda.empty_cache()
-    tsess, tprops, (tp, ts, tt) = run_sssp(repro_torch, sssp, csr, stream,
-                                           "torch", BATCH, clock)
-    log(f"[torch] prepare {tp:.3f} s | static_sssp {ts:.3f} s | stream "
-        f"{tt:.3f} s")
+
+    mark("sssp cuda")
+
+    # 2b. PageRank on cuda
+    sess, props, pr_launches = drive(
+        torch, repro_torch, counts, csr, stream, "pagerank cuda", "cuda",
+        pr_static, pr_step, clock,
+        launched=("fused_spmv_rows", "segment_sum_sorted"),
+        silent=("fused_relax_rows",) + CHAINED, per_batch=nb)
+    log(f"[pagerank cuda] {pr_launches['fused_spmv_rows']} sum sweeps, "
+        f"{pr_launches['segment_sum_sorted']} float segment sums")
+    if args.profile:
+        profile_path(torch, repro_torch, csr, stream, pr_static, pr_step,
+                     "pagerank")
+    pr_cuda = props["pr"].clone()
+    ell = sess.handle.ell
+    cfg = sess.engine._config(sess.handle.g)
+    R, K = ell.R, ell.K
+    fvals = torch.cat([props["pr"] * props["inv_outdeg"],
+                       props["pr"].new_zeros(1)])
+    emb = torch.nn.functional.embedding_bag
+    kernels.append(check_kernel(
+        torch, args, flush, "fused_spmv_rows",
+        "src/repro_torch/csrc/repair.cu",
+        "src/repro/kernels/pallas_repair.py:123",
+        pr_launches["fused_spmv_rows"],
+        lambda: FK.fused_spmv_rows(ell.ell_src, ell.row2dst, fvals,
+                                   block=cfg.row_block),
+        lambda: FK.fused_spmv_rows_plain(ell.ell_src, ell.row2dst, fvals,
+                                         cfg.row_block),
+        nbytes(ell.ell_src, ell.row2dst, fvals), R * K,
+        library=lambda: emb(ell.ell_src, fvals[:, None], mode="sum"),
+        R=R, K=K, n=n, block=cfg.row_block))
+    # the vertex combine after it: the deterministic float segment sum of
+    # each vertex's rows (one thread per vertex; the reference leaves it
+    # to XLA's segment_sum, no Pallas kernel)
+    row_sum = FK.fused_spmv_rows(ell.ell_src, ell.row2dst, fvals,
+                                 block=cfg.row_block)[0]
+    seg_ids = ell.row2dst.long()
+    rows_per = ell.offsets[1:] - ell.offsets[:-1]
+    kernels.append(check_kernel(
+        torch, args, flush, "segment_sum_sorted",
+        "src/repro_torch/csrc/segment.cu", "src/repro/kernels/ops.py:97",
+        pr_launches["segment_sum_sorted"],
+        lambda: SK.segment_sum_sorted(row_sum, None, ell.offsets),
+        lambda: SK.segment_sum_sorted_plain(row_sum, None, ell.offsets),
+        nbytes(row_sum, ell.offsets), R,
+        library=lambda: torch.zeros(n + 1, device=DEV).index_add_(
+            0, seg_ids, row_sum),
+        plain_reps=3,   # ~1 s a call: one step per row of the longest
+        R=R, n=n, longest=int(rows_per.max())))
+    del sess, ell, fvals, row_sum, seg_ids, rows_per
+    torch.cuda.empty_cache()
+
+    mark("pagerank cuda")
+
+    # 2c. SSSP, then PageRank, on cuda_chained
+    c_sess, c_props, c_launches = drive(
+        torch, repro_torch, counts, csr, stream, "sssp cuda_chained",
+        "cuda_chained", sssp_static, sssp_step, clock,
+        launched=("relax_rowmin", "relax_rowargmin"),
+        silent=("spmv_rowsum",) + FUSED)
     for k in ("dist", "parent"):
-        if not torch.equal(cuda_props[k], tprops[k]):
+        if not torch.equal(c_props[k], sssp_cuda[k]):
+            raise AssertionError(f"cuda_chained SSSP differs from cuda in "
+                                 f"{k}")
+    ell = c_sess.handle.ell
+    R, K = ell.R, ell.K
+    dist = c_props["dist"]
+    vals = torch.cat([torch.where(dist < INF_W, dist, INF_W).int(),
+                      dist.new_full((1,), INF_W)])
+    kernels.append(check_kernel(
+        torch, args, flush, "relax_rowmin",
+        "src/repro_torch/csrc/csr_relax.cu",
+        "src/repro/kernels/csr_relax.py:69", c_launches["relax_rowmin"],
+        lambda: CK.relax_rowmin(ell.ell_src, ell.ell_w, vals),
+        lambda: CK.relax_rowmin_plain(ell.ell_src, ell.ell_w, vals),
+        nbytes(ell.ell_src, ell.ell_w, vals), 2 * R * K, R=R, K=K, n=n))
+    vmin = kops.vertex_min_plus(ell, vals)
+    tgt = torch.cat([vmin, vmin.new_full((1,), INF_W)])[
+        ell.row2dst.clamp(max=n)]
+    kernels.append(check_kernel(
+        torch, args, flush, "relax_rowargmin",
+        "src/repro_torch/csrc/csr_relax.cu",
+        "src/repro/kernels/csr_relax.py:99", c_launches["relax_rowargmin"],
+        lambda: CK.relax_rowargmin(ell.ell_src, ell.ell_w, vals, tgt, n=n),
+        lambda: CK.relax_rowargmin_plain(ell.ell_src, ell.ell_w, vals, tgt,
+                                         n),
+        nbytes(ell.ell_src, ell.ell_w, vals, tgt), 3 * R * K,
+        R=R, K=K, n=n))
+    del c_sess, c_props, ell, vals, vmin, tgt, dist
+    torch.cuda.empty_cache()
+
+    p_sess, p_props, p_launches = drive(
+        torch, repro_torch, counts, csr, stream, "pagerank cuda_chained",
+        "cuda_chained", pr_static, pr_step, clock,
+        launched=("spmv_rowsum", "segment_sum_sorted"),
+        silent=("relax_rowmin", "relax_rowargmin") + FUSED)
+    if not torch.equal(p_props["pr"], pr_cuda):
+        raise AssertionError("cuda_chained PageRank differs from cuda")
+    log("[check] cuda_chained SSSP dist/parent and PageRank pr "
+        "bit-identical to cuda")
+    ell = p_sess.handle.ell
+    R, K = ell.R, ell.K
+    fvals = torch.cat([p_props["pr"] * p_props["inv_outdeg"],
+                       p_props["pr"].new_zeros(1)])
+    kernels.append(check_kernel(
+        torch, args, flush, "spmv_rowsum",
+        "src/repro_torch/csrc/csr_relax.cu",
+        "src/repro/kernels/csr_relax.py:84", p_launches["spmv_rowsum"],
+        lambda: CK.spmv_rowsum(ell.ell_src, fvals),
+        lambda: CK.spmv_rowsum_plain(ell.ell_src, fvals),
+        nbytes(ell.ell_src, fvals), R * K,
+        library=lambda: emb(ell.ell_src, fvals[:, None], mode="sum"),
+        R=R, K=K, n=n))
+    del p_sess, p_props, ell, fvals
+    del flush
+    torch.cuda.empty_cache()
+
+    mark("cuda_chained")
+
+    # -- 4. correctness ------------------------------------------------------
+    tsess, tprops, _ = drive(
+        torch, repro_torch, counts, csr, stream, "sssp torch", "torch",
+        sssp_static, sssp_step, clock, silent=FUSED + CHAINED)
+    for k in ("dist", "parent"):
+        if not torch.equal(sssp_cuda[k], tprops[k]):
             raise AssertionError(f"cuda and torch backends differ in {k}")
     tg = tsess.handle
     for f in ("offsets", "src", "dst", "w", "alive", "d_offsets", "d_src",
               "d_dst", "d_w", "d_alive", "overflow"):
         if not torch.equal(getattr(cuda_g, f), getattr(tg, f)):
             raise AssertionError(f"cuda and torch backends differ in g.{f}")
-    log("[check] dist, parent and all DynGraph arrays bit-identical to the "
-        "torch backend")
-    host = tuple(x.cpu().numpy() for x in (csr.src, csr.dst, csr.w))
-    with clock() as t_dij:
-        ref = dijkstra_dist(np, host, stream, n, INF_W)
-    got = cuda_props["dist"].cpu().numpy().astype(np.int64)
+    log("[check] SSSP dist, parent and all DynGraph arrays bit-identical to "
+        "the torch backend")
+    del tsess, tprops, tg, cuda_g
+    torch.cuda.empty_cache()
+
+    _, again, _ = drive(
+        torch, repro_torch, counts, csr, stream, "pagerank cuda, second run",
+        "cuda", pr_static, pr_step, clock,
+        launched=("fused_spmv_rows", "segment_sum_sorted"),
+        silent=("fused_relax_rows",) + CHAINED, per_batch=nb)
+    if not torch.equal(again["pr"], pr_cuda):
+        raise AssertionError("two cuda PageRank runs differ")
+    del again
+    _, tprops, _ = drive(
+        torch, repro_torch, counts, csr, stream, "pagerank torch", "torch",
+        pr_static, pr_step, clock, launched=("segment_sum_sorted",),
+        silent=FUSED + CHAINED)
+    d = (tprops["pr"].double() - pr_cuda.double()).abs()
+    max_d, l1_d = float(d.max()), float(d.sum())
+    top, mass = float(pr_cuda.max()), float(pr_cuda.double().sum())
+    log(f"[check] PageRank: second cuda run bit-identical; cuda vs torch "
+        f"backend max |d| {max_d:.3e} ({max_d / top:.3e} of max pr "
+        f"{top:.3e}), L1 {l1_d:.3e} ({l1_d / mass:.3e} of sum pr "
+        f"{mass:.6f})")
+    # absolute limits, and relative ones: at n = 4M a typical pr is
+    # ~2.4e-7, below the absolute max limit
+    if not (max_d <= 1e-6 and l1_d <= 1e-4 and max_d <= 1e-4 * top
+            and l1_d <= 1e-5 * mass):
+        raise AssertionError("cuda and torch PageRank differ beyond "
+                             "max 1e-6 and 1e-4 of max(pr) / L1 1e-4 and "
+                             "1e-5 of sum(pr)")
+    del tprops, d
+    torch.cuda.empty_cache()
+
+    mark("torch and second cuda runs")
+    post = edges_after(torch, csr, stream, n)
+    mark("post-update edge set")
+    with clock() as t_ref:
+        ref = dijkstra_dist(np, post, n, INF_W)
+    got = sssp_cuda["dist"].cpu().numpy().astype(np.int64)
     if not np.array_equal(got, ref):
         bad = int((got != ref).sum())
         raise AssertionError(f"dist differs from scipy Dijkstra at {bad} "
                              f"vertices")
-    log(f"[check] dist equals scipy Dijkstra ({int((ref < INF_W).sum())} "
-        f"reachable of {n}; {t_dij.s:.1f} s)")
+    mark("scipy Dijkstra")
+    log(f"[check] SSSP dist equals scipy Dijkstra "
+        f"({int((ref < INF_W).sum())} reachable of {n}; {t_ref.s:.1f} s)")
+
+    beta, delta, _ = PR_KNOBS
+    with clock() as t_ref:
+        ref = pagerank_f64(np, post, n, delta)
+    got = pr_cuda.cpu().numpy().astype(np.float64)
+    l1 = float(np.abs(got - ref).sum())
+    # Each fixed-point run (the static one, then two per batch) stops once
+    # a sweep moves the modified vertices by at most beta in L1; the sweep
+    # contracts by delta in L1, so a run leaves at most beta/(1-delta) of
+    # error behind.  The runs' errors add up at worst; float32 rounding
+    # adds far less.
+    l1_bound = (1 + 2 * nb) * beta / (1 - delta)
+    top = np.argsort(ref)[-1000:]
+    log(f"[check] PageRank vs float64 scipy power iteration "
+        f"({t_ref.s:.1f} s): L1 {l1:.3e} (bound {l1_bound:.3e}), max |d| "
+        f"{np.abs(got - ref).max():.3e}, sum {got.sum():.6f} vs "
+        f"{ref.sum():.6f}")
+    if not l1 <= l1_bound:
+        raise AssertionError(f"PageRank L1 error {l1} above its bound "
+                             f"{l1_bound}")
+    np.testing.assert_allclose(got[top], ref[top], rtol=5e-2, atol=0,
+                               err_msg="PageRank's top 1,000 vertices")
+    mark("scipy PageRank")
+    log(f"[check] PageRank's top 1,000 vertices within rtol 5e-2; whole "
+        f"smoke {stamps[-1][1] - stamps[0][1]:.1f} s")
+    log("[time] " + " | ".join(f"{b[0]} {b[1] - a[1]:.1f} s"
+                               for a, b in zip(stamps, stamps[1:])))
 
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

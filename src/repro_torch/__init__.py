@@ -3,8 +3,10 @@
 The package mirrors ``repro``'s module layout and names; it imports
 torch, numpy and scipy, and nothing of JAX or ``repro``.  Entry points
 run on the card unless ``device="cpu"`` is asked for.  Backends:
-``torch`` (plain tensor reference) and ``cuda`` (hand-written Hopper
-kernels, ``csrc/``).
+``torch`` (plain tensor reference), ``cuda`` (hand-written Hopper
+kernels, ``csrc/``, fused) and ``cuda_chained`` (the same engine on the
+per-op kernel chain).  Algorithms: ``repro_torch.algos.sssp`` and
+``repro_torch.algos.pagerank``.
 """
 from repro_torch.api import GraphSession, bind_graph, props_from_numpy
 from repro_torch.core.registry import (available_backends, make_engine,

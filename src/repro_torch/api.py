@@ -11,6 +11,10 @@
     props = sess.run_stream(stream, 65536, sssp.stream_step, props)
     sess.to_host()["dist"]                                 # explicit sync
 
+PageRank runs the same way (``algos.pagerank.static_pr`` and
+``make_stream_step``); ``backend`` is ``"cuda"``, ``"cuda_chained"`` or
+``"torch"``.
+
 A session owns one engine and its device-resident graph handle.  Every
 ΔG batch passes the admission guard first (default ``clamp``); a batch
 that overflows the diff pool rolls back, grows the pool and replays.

@@ -1,18 +1,23 @@
-"""CudaEngine — the hand-kernel backend (``cuda``), the counterpart of
-``repro.core.pallas_engine.PallasEngine`` in its fused mode.
+"""CudaEngine — the hand-kernel backend, the counterpart of
+``repro.core.pallas_engine.PallasEngine``, in its two regimes:
 
-* A sweep that declares a ``gather_form`` with a min (plus argmin)
-  reduction runs as ONE ``fused_relax_rows`` launch over the ELL pack
-  (``kernels/repair.py``); every other sweep takes the TorchEngine's
-  segment reductions, as in the reference.
-* ``update_add`` folds the admitted batch into the sorted diff pool with
-  the ``merge_pool_sorted`` kernel.
-* The ELL pack stays resident across batches: deletions and revivals
-  patch their slots, only appends to the diff pool rebuild it.
+* fused (``cuda``, the default): a sweep that declares a ``gather_form``
+  with a min (plus argmin) reduction runs as ONE ``fused_relax_rows``
+  launch over the ELL pack, a sum sweep (PageRank) as one
+  ``fused_spmv_rows`` launch (``kernels/repair.py``); ``update_add``
+  folds the admitted batch into the sorted diff pool with the
+  ``merge_pool_sorted`` kernel.
+* chained (``cuda_chained``, ``fused=False``): the per-op kernel chain
+  of ``kernels/csr_relax.py`` — ``relax_rowmin`` → vertex combine →
+  ``relax_rowargmin`` for SSSP, ``spmv_rowsum`` for PageRank — and the
+  TorchEngine's scatter path for ``update_add``.
+
+Every other sweep takes the TorchEngine's segment reductions, as in the
+reference.  The ELL pack stays resident across batches: deletions and
+revivals patch their slots, only appends to the diff pool rebuild it.
 
 On CPU tensors the kernel wrappers run their plain versions, which is
 how the tests hold this engine against the reference without a card.
-Sum sweeps on the SpMV kernel (PageRank) come with the next slice.
 """
 from __future__ import annotations
 
@@ -25,13 +30,14 @@ from repro_torch.core.engine import (Props, TorchEngine, dyn_from_state,
                                      dyn_state)
 from repro_torch.core.ir import EdgeSweep
 from repro_torch.graph import diffcsr
-from repro_torch.graph.csr import CSR
+from repro_torch.graph.csr import CSR, INT
 from repro_torch.graph.diffcsr import DynGraph
 from repro_torch.graph.updates import UpdateBatch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import repair as FK
 from repro_torch.kernels.ell import (Ell, ell_apply_add, ell_apply_del,
                                      ell_from_state, ell_state, pack_ell)
+from repro_torch.tensors import segment_max
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,9 +49,10 @@ class CudaHandle:
 class CudaEngine(TorchEngine):
     name = "cuda"
 
-    def __init__(self, k: int = 8, device=None):
+    def __init__(self, k: int = 8, fused: bool = True, device=None):
         super().__init__(device)
         self.k = k
+        self.fused = fused
         self._repack = functools.partial(pack_ell, k=k)
 
     def _config(self, g: DynGraph) -> FK.RepairConfig:
@@ -92,10 +99,13 @@ class CudaEngine(TorchEngine):
         return CudaHandle(g=g, ell=ell)
 
     def update_add(self, h: CudaHandle, batch: UpdateBatch) -> CudaHandle:
-        # one merge-path launch folds the admitted batch into the pool
-        g = diffcsr.update_csr_add(h.g, batch.add_src, batch.add_dst,
-                                   batch.add_w, batch.add_mask,
-                                   pool_merge=FK.merge_pool_sorted)
+        if self.fused:
+            # one merge-path launch folds the admitted batch into the pool
+            g = diffcsr.update_csr_add(h.g, batch.add_src, batch.add_dst,
+                                       batch.add_w, batch.add_mask,
+                                       pool_merge=FK.merge_pool_sorted)
+        else:
+            g = super().update_add(h.g, batch)
         # pull layout: slots hold SOURCES
         ell = ell_apply_add(h.ell, h.g, g, batch.add_src, batch.add_dst,
                             batch.add_w, batch.add_mask,
@@ -120,7 +130,7 @@ class CudaEngine(TorchEngine):
         if sw.gather_form is None:
             return False
         kinds = sorted(r.kind for r in sw.reduces.values())
-        return kinds in (["min"], ["argmin", "min"])
+        return kinds in (["min"], ["argmin", "min"], ["sum"])
 
     def _run_sweep(self, h, sw: EdgeSweep, props: Props) -> Props:
         if not isinstance(h, CudaHandle):
@@ -128,26 +138,76 @@ class CudaEngine(TorchEngine):
                             f"plus ELL pack), got {type(h).__name__}")
         if not self._kernel_compatible(sw):
             return super()._run_sweep(h.g, sw, props)
-        return self._run_sweep_fused(h, sw, props)
+        if self.fused:
+            return self._run_sweep_fused(h, sw, props)
+        return self._run_sweep_chained(h, sw, props)
 
     def _run_sweep_fused(self, h: CudaHandle, sw: EdgeSweep,
                          props: Props) -> Props:
-        """One fused launch per sweep: min, argmin and hit come out of a
-        single kernel with in-kernel frontier compaction."""
+        """One fused launch per sweep: min/argmin/hit (or sum/hit) come
+        out of a single kernel with in-kernel frontier compaction."""
         cfg = self._config(h.g)
         reduced, hit, parents = {}, {}, {}
         for target, red in sw.reduces.items():
             if red.kind == "argmin":
                 continue
             vec_fn, use_w = sw.gather_form[target]
-            assert use_w
-            vec = vec_fn(props)
-            vals_n1 = torch.cat([vec, vec.new_full((1,),
-                                                   red.identity(vec.dtype))])
-            reduced[target], parents[target], hit[target] = \
-                kops.vertex_relax_fused(h.ell, vals_n1, block=cfg.row_block)
+            vals_n1 = _pad_identity(vec_fn(props), red)
+            if red.kind == "min":
+                assert use_w
+                reduced[target], parents[target], hit[target] = \
+                    kops.vertex_relax_fused(h.ell, vals_n1,
+                                            block=cfg.row_block)
+            else:  # sum
+                reduced[target], hit[target] = kops.vertex_spmv_fused(
+                    h.ell, vals_n1, block=cfg.row_block)
         for target, red in sw.reduces.items():
             if red.kind == "argmin":
                 reduced[target] = parents[red.of]
                 hit[target] = hit[red.of]
         return sw.post_fn(props, reduced, hit)
+
+    def _run_sweep_chained(self, h: CudaHandle, sw: EdgeSweep,
+                           props: Props) -> Props:
+        """The per-op kernel chain: rowmin → vertex combine → hit →
+        rowargmin, or rowsum → vertex combine."""
+        ell = h.ell
+        n = self.n_pad
+        reduced, hit, gathered = {}, {}, {}
+        for target, red in sw.reduces.items():
+            if red.kind == "argmin":
+                continue
+            vec_fn, use_w = sw.gather_form[target]
+            vals_n1 = gathered[target] = _pad_identity(vec_fn(props), red)
+            if red.kind == "min":
+                assert use_w
+                reduced[target] = kops.vertex_min_plus(ell, vals_n1)
+                hit[target] = reduced[target] < red.identity(vals_n1.dtype)
+            else:  # sum
+                reduced[target] = kops.vertex_spmv(ell, vals_n1)
+                # the reference's segment_max: a vertex without rows gets
+                # the int32 minimum, which is True as a bool
+                hit[target] = segment_max((ell.row2dst < n).to(INT),
+                                          ell.row2dst.clamp(max=n),
+                                          n + 1)[:n].to(torch.bool)
+        for target, red in sw.reduces.items():
+            if red.kind != "argmin":
+                continue
+            # the min's own vector: its identity at slot n is INF_W
+            reduced[target] = kops.vertex_argmin_src(
+                ell, gathered[red.of], reduced[red.of])
+            hit[target] = hit[red.of]
+        return sw.post_fn(props, reduced, hit)
+
+
+def _pad_identity(vec: torch.Tensor, red) -> torch.Tensor:
+    """(n+1,): the property vector with the reduction's identity at slot
+    n, which the ELL's empty slots gather."""
+    return torch.cat([vec, vec.new_full((1,), red.identity(vec.dtype))])
+
+
+def CudaChainedEngine(**kw) -> CudaEngine:
+    """Registry factory for the chained regime (``cuda_chained``): the
+    same engine with per-op kernel chains instead of fused launches."""
+    kw.setdefault("fused", False)
+    return CudaEngine(**kw)

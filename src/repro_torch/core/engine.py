@@ -8,8 +8,8 @@ of ``repro.core.engine``).
 
 Control flow runs on the host: a fixed point checks its condition with
 one host sync per sweep, and ``run_stream`` reads the pool counters once
-per batch (the reference's baseline executor; its fused ``lax.scan``
-waits for CUDA graphs).
+per segment of batches, as the reference's stream executor does (its
+``lax.scan`` over a segment waits for CUDA graphs).
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.ir import EdgeSweep
+from repro_torch.core.ir import EdgeSweep, Reduce
 from repro_torch.graph import diffcsr
 from repro_torch.graph.csr import CSR, INT, build_csr
 from repro_torch.graph.diffcsr import BOOL, DynGraph
@@ -104,9 +104,26 @@ class Engine:
 
     def propagate_flags(self, handle, props: Props, flag: str,
                         max_iter: int = 1_000_000) -> Props:
-        raise NotImplementedError(
-            "propagate_flags comes with the DSL slice (ROADMAP Queue 1 "
-            "item 8)")
+        """paper: g.propagateNodeFlags — BFS-spread a boolean property to
+        everything reachable from the flagged set (an ``or`` sweep to a
+        fixed point)."""
+        sw = EdgeSweep(
+            edge_fn=lambda s, d, w: {flag: (s[flag], s[flag])},
+            reduces={flag: Reduce("or")},
+            post_fn=lambda p, red, hit: {
+                **p,
+                flag: p[flag] | red[flag],
+                "_changed": red[flag] & ~p[flag],
+            },
+        )
+        props = dict(props)
+        props["_changed"] = props[flag]
+        props = self.fixed_point(
+            handle, sw, props,
+            cond_fn=lambda p, it, col: col.any(p["_changed"]),
+            max_iter=max_iter)
+        props.pop("_changed")
+        return props
 
     # -- dynamic updates ---------------------------------------------------
     def update_del(self, handle, batch: UpdateBatch):
@@ -147,26 +164,39 @@ class Engine:
 
     def run_stream(self, handle, stream, batch_size: int, step_fn, carry,
                    segment_size: int = 8, compact_frac: float = 0.5):
-        """Per-batch dispatch: one counter read per batch (and per
-        replay).  ``segment_size`` has no effect — every batch is its own
-        segment; the fused segment scan waits for CUDA graphs (ROADMAP
-        Queue 1 item 9)."""
+        """The reference's segmented stream executor, dispatched batch by
+        batch: the stream is cut into segments of ``segment_size``
+        batches, and the pool counters are read once per segment.
+        Overflow rolls the segment back to its start, grows the pool and
+        replays it; heavy tombstoning compacts the pool at the segment's
+        end.  (The reference runs each segment as one ``lax.scan``; a
+        captured CUDA graph waits for ROADMAP Queue 1 item 9.)"""
+        nb = stream.num_batches(batch_size)
+        if nb == 0:
+            return handle, carry
+        seg = max(1, min(segment_size or nb, nb))
         of0 = self._counters(handle)[0]
-        for i in range(stream.num_batches(batch_size)):
-            batch = stream.batch(i, batch_size, device=self.device)
-            snap = (handle, carry)
-            handle, carry = step_fn(self, handle, batch, carry)
-            of, _used, dead = self._counters(handle)
-            while of > of0:
-                # adds were dropped: roll back, grow capacity, replay
-                handle, carry = self.grow(snap[0]), snap[1]
-                of0 = 0
+        i = 0
+        while i < nb:
+            k = min(seg, nb - i)
+            batches = [stream.batch(i + j, batch_size, device=self.device)
+                       for j in range(k)]
+            while True:
                 snap = (handle, carry)
-                handle, carry = step_fn(self, handle, batch, carry)
+                for batch in batches:
+                    handle, carry = step_fn(self, handle, batch, carry)
                 of, _used, dead = self._counters(handle)
+                if of > of0:
+                    # adds were dropped inside the segment: roll back,
+                    # grow the pool, replay on the larger shapes
+                    handle, carry = self.grow(snap[0]), snap[1]
+                    of0 = 0
+                    continue
+                break
             of0 = of
             if dead > compact_frac * max(self._diff_capacity(handle), 1):
                 handle = self.compact_handle(handle)
+            i += k
         return handle, carry
 
     def _stream_scan(self, *args, **kwargs):

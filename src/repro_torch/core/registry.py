@@ -6,10 +6,11 @@ Built-ins are registered by module path and imported on first use:
 * ``torch`` — :class:`~repro_torch.core.engine.TorchEngine`, the plain
   tensor reference;
 * ``cuda``  — :class:`~repro_torch.core.cuda_engine.CudaEngine`, the
-  hand-kernel backend.
+  hand-kernel backend with fused kernels;
+* ``cuda_chained`` — the same engine on the per-op kernel chain
+  (:func:`~repro_torch.core.cuda_engine.CudaChainedEngine`).
 
-``cuda_chained`` waits for the chained kernels (ROADMAP Queue 2 items
-4-6).  ``register_engine`` plugs in more.
+``register_engine`` plugs in more.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ class DuplicateBackendError(ValueError):
 _BUILTIN_PATHS: Dict[str, str] = {
     "torch": "repro_torch.core.engine:TorchEngine",
     "cuda": "repro_torch.core.cuda_engine:CudaEngine",
+    "cuda_chained": "repro_torch.core.cuda_engine:CudaChainedEngine",
 }
 
 _FACTORIES: Dict[str, EngineFactory] = {}

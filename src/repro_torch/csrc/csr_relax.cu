@@ -1,0 +1,152 @@
+// Hand-written Hopper (sm_90a) kernels for the chained regime of the
+// hand-kernel engine (cuda_chained): one ELL row of K slots per output
+// element, no compaction.  Bound to PyTorch through a plain C interface
+// (ctypes) by src/repro_torch/kernels/csr_relax.py, which also holds each
+// kernel's plain PyTorch version.  Every entry point launches on the
+// caller's stream, allocates nothing, and returns cudaGetLastError().
+//
+// They replace the three Pallas kernels of src/repro/kernels/csr_relax.py:
+//   relax_rowmin     out[r] = min_k vals[src]+w                (int32)
+//   spmv_rowsum      out[r] = vals[src_0] + ... + vals[src_{K-1}]
+//                    (float32, added left to right, no reassociation)
+//   relax_rowargmin  out[r] = min_k {src : vals[src]+w == row_targets[r]},
+//                    n where no slot reaches the target
+// vals is (n+1,) with the reduction identity at slot n, so empty slots
+// (src == n) gather the identity.
+//
+// Bound: device-memory bytes.  A row streams K·4 bytes of sources (and
+// K·4 of weights for the two relax kernels), reads 4 bytes of target
+// (argmin) and writes 4; the K gathers of vals (16 MB at n = 4M) mostly
+// hit the 50 MB L2.  The TPU kernels keep vals resident in VMEM and walk
+// 128-row tiles in order; here one thread takes one row, so a warp reads
+// 32 consecutive rows, loads a K = 8 row as two 16-byte loads, and
+// gathers vals through the read-only path (__ldg).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "ell_row.cuh"
+
+namespace {
+
+template <bool VEC8>
+__global__ void relax_rowmin_kernel(const int* __restrict__ ell_src,
+                                    const int* __restrict__ ell_w,
+                                    const int* __restrict__ vals,
+                                    int* __restrict__ out, int R, int K) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const int kk = VEC8 ? 8 : K;
+  int s[32], w[32];
+  load_row<VEC8>(ell_src, r, kk, s);
+  load_row<VEC8>(ell_w, r, kk, w);
+  int m = wrap_add(__ldg(vals + s[0]), w[0]);
+#pragma unroll 8
+  for (int k = 1; k < kk; ++k) m = min(m, wrap_add(__ldg(vals + s[k]), w[k]));
+  out[r] = m;
+}
+
+template <bool VEC8>
+__global__ void spmv_rowsum_kernel(const int* __restrict__ ell_src,
+                                   const float* __restrict__ vals,
+                                   float* __restrict__ out, int R, int K) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const int kk = VEC8 ? 8 : K;
+  int s[32];
+  load_row<VEC8>(ell_src, r, kk, s);
+  float acc = __ldg(vals + s[0]);
+#pragma unroll 8
+  for (int k = 1; k < kk; ++k) acc = __fadd_rn(acc, __ldg(vals + s[k]));
+  out[r] = acc;
+}
+
+template <bool VEC8>
+__global__ void relax_rowargmin_kernel(const int* __restrict__ ell_src,
+                                       const int* __restrict__ ell_w,
+                                       const int* __restrict__ vals,
+                                       const int* __restrict__ row_targets,
+                                       int* __restrict__ out, int R, int K,
+                                       int n) {
+  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const int kk = VEC8 ? 8 : K;
+  int s[32], w[32];
+  load_row<VEC8>(ell_src, r, kk, s);
+  load_row<VEC8>(ell_w, r, kk, w);
+  const int t = __ldg(row_targets + r);
+  int a = n;
+#pragma unroll 8
+  for (int k = 0; k < kk; ++k) {
+    if (wrap_add(__ldg(vals + s[k]), w[k]) == t) a = min(a, s[k]);
+  }
+  out[r] = a;
+}
+
+constexpr int kBlock = 256;
+
+bool vec8(int K, const void* a, const void* b) {
+  return K == 8 && (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0;
+}
+
+}  // namespace
+
+// K above 32 is refused (cudaErrorInvalidValue): the row lives in
+// registers.
+extern "C" int repro_relax_rowmin(const void* ell_src, const void* ell_w,
+                                  const void* vals, void* out, int R, int K,
+                                  void* stream) {
+  if (K < 1 || K > 32) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int grid = (R + kBlock - 1) / kBlock;
+  if (grid > 0) {
+    if (vec8(K, ell_src, ell_w)) {
+      relax_rowmin_kernel<true><<<grid, kBlock, 0, st>>>(
+          (const int*)ell_src, (const int*)ell_w, (const int*)vals,
+          (int*)out, R, K);
+    } else {
+      relax_rowmin_kernel<false><<<grid, kBlock, 0, st>>>(
+          (const int*)ell_src, (const int*)ell_w, (const int*)vals,
+          (int*)out, R, K);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_spmv_rowsum(const void* ell_src, const void* vals,
+                                 void* out, int R, int K, void* stream) {
+  if (K < 1 || K > 32) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int grid = (R + kBlock - 1) / kBlock;
+  if (grid > 0) {
+    if (vec8(K, ell_src, ell_src)) {
+      spmv_rowsum_kernel<true><<<grid, kBlock, 0, st>>>(
+          (const int*)ell_src, (const float*)vals, (float*)out, R, K);
+    } else {
+      spmv_rowsum_kernel<false><<<grid, kBlock, 0, st>>>(
+          (const int*)ell_src, (const float*)vals, (float*)out, R, K);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_relax_rowargmin(const void* ell_src, const void* ell_w,
+                                     const void* vals,
+                                     const void* row_targets, void* out,
+                                     int R, int K, int n, void* stream) {
+  if (K < 1 || K > 32) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int grid = (R + kBlock - 1) / kBlock;
+  if (grid > 0) {
+    if (vec8(K, ell_src, ell_w)) {
+      relax_rowargmin_kernel<true><<<grid, kBlock, 0, st>>>(
+          (const int*)ell_src, (const int*)ell_w, (const int*)vals,
+          (const int*)row_targets, (int*)out, R, K, n);
+    } else {
+      relax_rowargmin_kernel<false><<<grid, kBlock, 0, st>>>(
+          (const int*)ell_src, (const int*)ell_w, (const int*)vals,
+          (const int*)row_targets, (int*)out, R, K, n);
+    }
+  }
+  return (int)cudaGetLastError();
+}

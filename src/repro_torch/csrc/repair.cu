@@ -1,4 +1,5 @@
-// Hand-written Hopper (sm_90a) kernels for the dynamic-SSSP repair path.
+// Hand-written Hopper (sm_90a) kernels for the fused repair path of
+// dynamic SSSP and PageRank.
 // Bound to PyTorch through a plain C interface (ctypes) by
 // src/repro_torch/kernels/repair.py, which also holds each kernel's plain
 // PyTorch version.  Every entry point launches on the caller's stream,
@@ -21,6 +22,19 @@
 //   exclusive scan of the hit flags from warp ballots and popc, so the
 //   compaction costs no extra pass over memory.
 //
+// fused_spmv_rows
+//   Replaces: src/repro/kernels/pallas_repair.py fused_spmv_rows
+//   (_fused_spmv_kernel).  Per ELL row r of K slots:
+//     row_sum[r] = vals[src_0] + vals[src_1] + ... + vals[src_{K-1}]
+//                  (float32, added left to right: no reassociation, no
+//                  fast-math, so it equals the plain version bit for bit)
+//     hit        = row2dst[r] < n       (the row belongs to a vertex)
+//   and the hit row ids compacted per block as in fused_relax_rows.
+//   Bound: device-memory bytes (K·4 bytes of slots and 4 of row2dst in,
+//   8 out per row; the gathers mostly hit L2).  Design: the relax
+//   kernel's — one thread per row, 16-byte slot loads, __ldg gathers,
+//   the same ballot/popc block scan.
+//
 // merge_pool_sorted
 //   Replaces: src/repro/kernels/pallas_repair.py merge_pool_sorted
 //   (_merge_kernel).  Merges the diff pool (D rows, sorted by (src, dst),
@@ -36,12 +50,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include "ell_row.cuh"
 
-__device__ __forceinline__ int wrap_add(int a, int b) {
-  // int32 addition that wraps like JAX's and torch's, without C++ UB
-  return (int)((unsigned)a + (unsigned)b);
-}
+namespace {
 
 __device__ __forceinline__ void relax_slot(int s, int w,
                                            const int* __restrict__ vals,
@@ -55,52 +66,17 @@ __device__ __forceinline__ void relax_slot(int s, int w,
   }
 }
 
-// VEC8: K == 8 with 16-byte aligned rows, loaded as int4 pairs.
-template <bool VEC8>
-__global__ void fused_relax_rows_kernel(const int* __restrict__ ell_src,
-                                        const int* __restrict__ ell_w,
-                                        const int* __restrict__ vals,
-                                        int* __restrict__ row_min,
-                                        int* __restrict__ row_arg,
-                                        int* __restrict__ rows,
-                                        int* __restrict__ counts,
-                                        int R, int K, int n) {
-  extern __shared__ int warp_tot[];  // one inclusive count per warp
+// Block-wide compaction shared by the fused kernels: the ids of this
+// block's hit rows packed to the front of its slice of `rows` (sentinel R
+// after the count), counts[block] = count.  An exclusive scan of the hit
+// flags from warp ballots and popc, then an inclusive scan of the warp
+// totals by warp 0.  Every thread of the block must call it.
+__device__ __forceinline__ void compact_block(bool hit, long long r,
+                                              long long base, int R,
+                                              int* warp_tot,
+                                              int* __restrict__ rows,
+                                              int* __restrict__ counts) {
   const int tid = threadIdx.x;
-  const long long base = (long long)blockIdx.x * blockDim.x;
-  const long long r = base + tid;
-  bool hit = false;
-  if (r < R) {
-    int rmin, rarg;
-    if (VEC8) {
-      const int4* s4 = reinterpret_cast<const int4*>(ell_src + r * 8);
-      const int4* w4 = reinterpret_cast<const int4*>(ell_w + r * 8);
-      const int4 sa = __ldg(s4), sb = __ldg(s4 + 1);
-      const int4 wa = __ldg(w4), wb = __ldg(w4 + 1);
-      rmin = wrap_add(__ldg(vals + sa.x), wa.x);
-      rarg = sa.x;
-      relax_slot(sa.y, wa.y, vals, rmin, rarg);
-      relax_slot(sa.z, wa.z, vals, rmin, rarg);
-      relax_slot(sa.w, wa.w, vals, rmin, rarg);
-      relax_slot(sb.x, wb.x, vals, rmin, rarg);
-      relax_slot(sb.y, wb.y, vals, rmin, rarg);
-      relax_slot(sb.z, wb.z, vals, rmin, rarg);
-      relax_slot(sb.w, wb.w, vals, rmin, rarg);
-    } else {
-      const int* s = ell_src + r * K;
-      const int* w = ell_w + r * K;
-      rarg = __ldg(s);
-      rmin = wrap_add(__ldg(vals + rarg), __ldg(w));
-      for (int k = 1; k < K; ++k) relax_slot(__ldg(s + k), __ldg(w + k),
-                                             vals, rmin, rarg);
-    }
-    row_min[r] = rmin;
-    row_arg[r] = rarg;
-    hit = rmin < __ldg(vals + n);
-  }
-
-  // block-wide exclusive scan of the hit flags: ballot + popc per warp,
-  // then an inclusive scan of the warp totals by warp 0
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -122,6 +98,78 @@ __global__ void fused_relax_rows_kernel(const int* __restrict__ ell_src,
   if (hit) rows[base + pos] = (int)r;
   if (tid >= total && r < R) rows[r] = R;
   if (tid == 0) counts[blockIdx.x] = total;
+}
+
+// VEC8: K == 8 with 16-byte aligned rows, loaded as int4 pairs.
+template <bool VEC8>
+__global__ void fused_relax_rows_kernel(const int* __restrict__ ell_src,
+                                        const int* __restrict__ ell_w,
+                                        const int* __restrict__ vals,
+                                        int* __restrict__ row_min,
+                                        int* __restrict__ row_arg,
+                                        int* __restrict__ rows,
+                                        int* __restrict__ counts,
+                                        int R, int K, int n) {
+  extern __shared__ int warp_tot[];  // one inclusive count per warp
+  const long long base = (long long)blockIdx.x * blockDim.x;
+  const long long r = base + threadIdx.x;
+  bool hit = false;
+  if (r < R) {
+    int rmin, rarg;
+    if (VEC8) {
+      int s[8], w[8];
+      load_row<true>(ell_src, r, 8, s);
+      load_row<true>(ell_w, r, 8, w);
+      rmin = wrap_add(__ldg(vals + s[0]), w[0]);
+      rarg = s[0];
+#pragma unroll
+      for (int k = 1; k < 8; ++k) relax_slot(s[k], w[k], vals, rmin, rarg);
+    } else {
+      const int* s = ell_src + r * K;
+      const int* w = ell_w + r * K;
+      rarg = __ldg(s);
+      rmin = wrap_add(__ldg(vals + rarg), __ldg(w));
+      for (int k = 1; k < K; ++k) relax_slot(__ldg(s + k), __ldg(w + k),
+                                             vals, rmin, rarg);
+    }
+    row_min[r] = rmin;
+    row_arg[r] = rarg;
+    hit = rmin < __ldg(vals + n);
+  }
+
+  compact_block(hit, r, base, R, warp_tot, rows, counts);
+}
+
+// VEC8: K == 8 with 16-byte aligned rows, loaded as int4 pairs.
+template <bool VEC8>
+__global__ void fused_spmv_rows_kernel(const int* __restrict__ ell_src,
+                                       const int* __restrict__ row2dst,
+                                       const float* __restrict__ vals,
+                                       float* __restrict__ row_sum,
+                                       int* __restrict__ rows,
+                                       int* __restrict__ counts,
+                                       int R, int K, int n) {
+  extern __shared__ int warp_tot[];  // one inclusive count per warp
+  const long long base = (long long)blockIdx.x * blockDim.x;
+  const long long r = base + threadIdx.x;
+  bool hit = false;
+  if (r < R) {
+    float acc;
+    if (VEC8) {
+      int s[8];
+      load_row<true>(ell_src, r, 8, s);
+      acc = __ldg(vals + s[0]);
+#pragma unroll
+      for (int k = 1; k < 8; ++k) acc = __fadd_rn(acc, __ldg(vals + s[k]));
+    } else {
+      const int* s = ell_src + r * K;
+      acc = __ldg(vals + __ldg(s));
+      for (int k = 1; k < K; ++k) acc = __fadd_rn(acc, __ldg(vals + __ldg(s + k)));
+    }
+    row_sum[r] = acc;
+    hit = __ldg(row2dst + r) < n;
+  }
+  compact_block(hit, r, base, R, warp_tot, rows, counts);
 }
 
 __global__ void merge_pool_sorted_kernel(
@@ -184,6 +232,29 @@ extern "C" int repro_fused_relax_rows(const void* ell_src, const void* ell_w,
       fused_relax_rows_kernel<false><<<grid, block, smem, s>>>(
           (const int*)ell_src, (const int*)ell_w, (const int*)vals,
           (int*)row_min, (int*)row_arg, (int*)rows, (int*)counts, R, K, n);
+    }
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int repro_fused_spmv_rows(const void* ell_src,
+                                     const void* row2dst, const void* vals,
+                                     void* row_sum, void* rows, void* counts,
+                                     int R, int K, int n, int block,
+                                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int grid = (R + block - 1) / block;
+  const size_t smem = (size_t)(block / 32) * sizeof(int);
+  const bool vec8 = K == 8 && ((uintptr_t)ell_src % 16 == 0);
+  if (grid > 0) {
+    if (vec8) {
+      fused_spmv_rows_kernel<true><<<grid, block, smem, s>>>(
+          (const int*)ell_src, (const int*)row2dst, (const float*)vals,
+          (float*)row_sum, (int*)rows, (int*)counts, R, K, n);
+    } else {
+      fused_spmv_rows_kernel<false><<<grid, block, smem, s>>>(
+          (const int*)ell_src, (const int*)row2dst, (const float*)vals,
+          (float*)row_sum, (int*)rows, (int*)counts, R, K, n);
     }
   }
   return (int)cudaGetLastError();

@@ -1,10 +1,16 @@
-"""Build and load the hand-written CUDA kernels in ``csrc/``.
+"""Build and load the hand-written CUDA kernels in ``csrc/``, and the
+helpers every kernel wrapper launches with.
 
-The source is compiled at first use with ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface, keyed by a
-hash of the source and the flags, under ``build/repro_torch/`` at the
-repository root; the library is loaded with ``ctypes``.  Nothing here
-runs when the package is imported.
+Each ``csrc/*.cu`` is compiled at first use with ``nvcc`` for Hopper
+(``sm_90a``) into a shared library with a plain C interface, all of them
+at once (one ``nvcc`` process per source), keyed by one hash of every
+source, the ``*.cuh`` headers they include and the flags; the libraries
+are loaded with ``ctypes``.  They go
+to ``build/repro_torch/`` at the root of the checkout when the package
+runs from one (``PYTHONPATH=src`` or an editable install), else to a
+user cache directory (``$XDG_CACHE_HOME/repro_torch``, by default
+``~/.cache/repro_torch``).  Nothing here runs when the package is
+imported.
 """
 from __future__ import annotations
 
@@ -16,27 +22,56 @@ import shutil
 import subprocess
 import threading
 import time
+import types
+
+import torch
 
 _HERE = pathlib.Path(__file__).resolve()
-SOURCE = _HERE.parents[1] / "csrc" / "repair.cu"
-BUILD_DIR = _HERE.parents[3] / "build" / "repro_torch"
+CSRC = _HERE.parents[1] / "csrc"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _build_dir() -> pathlib.Path:
+    root = _HERE.parents[3]
+    if _HERE.parents[2].name == "src" and (root / "pyproject.toml").is_file():
+        return root / "build" / "repro_torch"
+    cache = os.environ.get("XDG_CACHE_HOME") or \
+        pathlib.Path.home() / ".cache"
+    return pathlib.Path(cache) / "repro_torch"
+
+
+BUILD_DIR = _build_dir()
 
 _LOCK = threading.Lock()
 _LIB = None
-# what the last build in this process printed and how long it took
-BUILD_INFO = {"seconds": None, "log": "", "path": None}
+# what the last build in this process printed and how long it took, per
+# source file; ``seconds`` is the wall time of the whole parallel build
+BUILD_INFO = {"seconds": None, "logs": {}, "paths": {}}
 
 P, I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # ell_src, ell_w, vals, row_min, row_arg, rows, counts, R, K, n,
-    # block, stream
+    # repair.cu — ell_src, ell_w, vals, row_min, row_arg, rows, counts,
+    # R, K, n, block, stream
     "repro_fused_relax_rows": [P] * 7 + [I] * 4 + [P],
+    # ell_src, row2dst, vals, row_sum, rows, counts, R, K, n, block, stream
+    "repro_fused_spmv_rows": [P] * 6 + [I] * 4 + [P],
     # pool src/dst/w/alive, fresh src/dst/w/alive, out src/dst/w/alive,
     # D, B, n, iters, stream
     "repro_merge_pool_sorted": [P] * 12 + [I] * 4 + [P],
+    # csr_relax.cu — ell_src, ell_w, vals, out, R, K, stream
+    "repro_relax_rowmin": [P] * 4 + [I] * 2 + [P],
+    # ell_src, vals, out, R, K, stream
+    "repro_spmv_rowsum": [P] * 3 + [I] * 2 + [P],
+    # ell_src, ell_w, vals, row_targets, out, R, K, n, stream
+    "repro_relax_rowargmin": [P] * 5 + [I] * 3 + [P],
+    # segment.cu — vals, order (or null), offsets, out, num, stream
+    "repro_segment_sum_sorted": [P] * 4 + [I] + [P],
 }
+
+
+def sources() -> list:
+    return sorted(CSRC.glob("*.cu"))
 
 
 def _nvcc() -> str:
@@ -51,37 +86,95 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"librepair_{digest}.so"
+def library_paths() -> dict:
+    """{source: library} for every source, under one hash of them all and
+    of the headers they include."""
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode() + src.read_bytes())
+    digest = h.hexdigest()[:16]
+    return {src: BUILD_DIR / f"lib{src.stem}_{digest}.so"
+            for src in sources()}
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first call (one ``nvcc`` run)."""
+def load() -> types.SimpleNamespace:
+    """Every kernel entry point, built on first call (the sources that
+    have no library yet are compiled in parallel)."""
     global _LIB
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        so = library_path()
-        if not so.exists():
+        libs = library_paths()
+        todo = {src: so for src, so in libs.items() if not so.exists()}
+        if todo:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
             t0 = time.perf_counter()
-            res = subprocess.run([_nvcc(), *FLAGS, "-o", str(tmp),
-                                  str(SOURCE)], capture_output=True,
-                                 text=True)
+            procs = {src: (subprocess.Popen(
+                [_nvcc(), *FLAGS, "-o", str(so.with_suffix(
+                    f".{os.getpid()}.tmp")), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+                so) for src, so in todo.items()}
+            failed = []
+            for src, (proc, so) in procs.items():
+                log = proc.communicate()[0]
+                BUILD_INFO["logs"][src.name] = log
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed on {src.name}:\n{log}")
+                else:
+                    os.replace(so.with_suffix(f".{os.getpid()}.tmp"), so)
             BUILD_INFO["seconds"] = time.perf_counter() - t0
-            BUILD_INFO["log"] = res.stdout + res.stderr
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n"
-                                   f"{BUILD_INFO['log']}")
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        BUILD_INFO["path"] = str(so)
-        _LIB = lib
-        return lib
+            if failed:
+                raise RuntimeError("\n".join(failed))
+        fns = {}
+        for src, so in libs.items():
+            lib = ctypes.CDLL(str(so))
+            BUILD_INFO["paths"][src.name] = str(so)
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name, None)
+                if fn is not None:
+                    fn.argtypes = args
+                    fn.restype = ctypes.c_int
+                    fns[name] = fn
+        missing = sorted(set(_SIGNATURES) - set(fns))
+        if missing:
+            raise RuntimeError(f"kernel entry points missing from the "
+                               f"built libraries: {missing}")
+        _LIB = types.SimpleNamespace(**fns)
+        return _LIB
+
+
+# ---------------------------------------------------------------------------
+# launch helpers shared by the kernel wrappers
+# ---------------------------------------------------------------------------
+
+def check(name: str, dev: torch.device, **tensors) -> None:
+    """Each ``arg=(tensor, dtype)`` lies on ``dev``, has ``dtype`` and is
+    contiguous; raises otherwise."""
+    for arg, (t, dtype) in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name}: {arg} is on {t.device}, expected {dev}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, "
+                            f"expected {dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+
+
+def cuda_device(name: str, t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                           f"{err}")

@@ -1,0 +1,113 @@
+"""The chained row kernels over the ELL pack (counterpart of
+``repro.kernels.csr_relax``), each beside its plain PyTorch version.
+
+``relax_rowmin``    : ``out[r] = min_k vals[src[r,k]] + w[r,k]``   (SSSP)
+``spmv_rowsum``     : ``out[r] = sum_k vals[src[r,k]]``            (PageRank)
+``relax_rowargmin`` : ``out[r] = min_k {src | vals[src]+w == row_targets[r]}``,
+                      sentinel n  (deterministic parent for SSSP)
+
+``vals`` is (n+1,) with the reduction identity at slot n, so empty slots
+(src == n) gather the identity.  Integer adds wrap as int32 does; the K
+float lanes of ``spmv_rowsum`` are added left to right.
+
+A wrapper takes the plain version only for tensors on the CPU.  For a
+CUDA tensor it launches the kernel in ``csrc/csr_relax.cu`` or raises.
+``LAUNCHES`` counts kernel launches, and only those.  They are the
+``cuda_chained`` engine's sweep; the ``cuda`` engine runs the fused
+kernels of ``kernels/repair.py`` instead.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.graph.csr import INT
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import check, cuda_device, ptr, raise_on
+from repro_torch.kernels._build import stream as _stream
+from repro_torch.kernels.repair import row_sum_plain
+
+LAUNCHES = {"relax_rowmin": 0, "spmv_rowsum": 0, "relax_rowargmin": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _shape(name: str, ell_src):
+    R, K = ell_src.shape
+    if not 1 <= K <= 32:
+        raise ValueError(f"{name}: rows of 1-32 slots, got K={K}")
+    return R, K
+
+
+def _cand(ell_src, ell_w, vals):
+    return vals[ell_src.to(torch.int64)] + ell_w
+
+
+def relax_rowmin_plain(ell_src, ell_w, vals):
+    return _cand(ell_src, ell_w, vals).min(dim=1).values
+
+
+def spmv_rowsum_plain(ell_src, vals):
+    return row_sum_plain(ell_src, vals)
+
+
+def relax_rowargmin_plain(ell_src, ell_w, vals, row_targets, n: int):
+    achieved = _cand(ell_src, ell_w, vals) == row_targets[:, None]
+    return torch.where(achieved, ell_src, n).min(dim=1).values
+
+
+def relax_rowmin(ell_src, ell_w, vals):
+    """vals: (n+1,) int32 with the identity (INF_W) at slot n."""
+    if vals.device.type == "cpu":
+        return relax_rowmin_plain(ell_src, ell_w, vals)
+    dev = cuda_device("relax_rowmin", vals)
+    check("relax_rowmin", dev, ell_src=(ell_src, INT), ell_w=(ell_w, INT),
+          vals=(vals, INT))
+    if ell_w.shape != ell_src.shape:
+        raise ValueError("relax_rowmin: ell_w must match ell_src's shape")
+    R, K = _shape("relax_rowmin", ell_src)
+    out = torch.empty((R,), dtype=INT, device=dev)
+    err = _build.load().repro_relax_rowmin(
+        ptr(ell_src), ptr(ell_w), ptr(vals), ptr(out), R, K, _stream(dev))
+    raise_on(err, "relax_rowmin")
+    LAUNCHES["relax_rowmin"] += 1
+    return out
+
+
+def spmv_rowsum(ell_src, vals):
+    """vals: (n+1,) float32 with 0.0 at slot n."""
+    if vals.device.type == "cpu":
+        return spmv_rowsum_plain(ell_src, vals)
+    dev = cuda_device("spmv_rowsum", vals)
+    check("spmv_rowsum", dev, ell_src=(ell_src, INT),
+          vals=(vals, torch.float32))
+    R, K = _shape("spmv_rowsum", ell_src)
+    out = torch.empty((R,), dtype=torch.float32, device=dev)
+    err = _build.load().repro_spmv_rowsum(
+        ptr(ell_src), ptr(vals), ptr(out), R, K, _stream(dev))
+    raise_on(err, "spmv_rowsum")
+    LAUNCHES["spmv_rowsum"] += 1
+    return out
+
+
+def relax_rowargmin(ell_src, ell_w, vals, row_targets, *, n: int):
+    """row_targets: (R,) the already-combined per-row target value."""
+    if vals.device.type == "cpu":
+        return relax_rowargmin_plain(ell_src, ell_w, vals, row_targets, n)
+    dev = cuda_device("relax_rowargmin", vals)
+    check("relax_rowargmin", dev, ell_src=(ell_src, INT),
+          ell_w=(ell_w, INT), vals=(vals, INT),
+          row_targets=(row_targets, INT))
+    R, K = _shape("relax_rowargmin", ell_src)
+    if ell_w.shape != ell_src.shape or row_targets.shape != (R,):
+        raise ValueError("relax_rowargmin: ell_w must match ell_src's "
+                         "shape and row_targets must be (R,)")
+    out = torch.empty((R,), dtype=INT, device=dev)
+    err = _build.load().repro_relax_rowargmin(
+        ptr(ell_src), ptr(ell_w), ptr(vals), ptr(row_targets), ptr(out), R,
+        K, n, _stream(dev))
+    raise_on(err, "relax_rowargmin")
+    LAUNCHES["relax_rowargmin"] += 1
+    return out

@@ -5,7 +5,8 @@
   rows of K slots; ``row2dst`` maps a row back to its vertex (sentinel
   n for unused rows), empty slots hold the sentinel src == n;
 * R = n + ceil((E+D)/K), rounded up to 128 rows, so a pack is
-  slot-for-slot the reference's;
+  slot-for-slot the reference's; ``offsets`` (the port's own) keeps each
+  vertex's first row, for the vertex combine of float row sums;
 * ``lane2slot`` maps every edge lane to its flat slot, so deletions and
   revivals patch the pack in place; only appends to the diff pool, which
   shift diff lanes, rebuild it.
@@ -33,6 +34,9 @@ class Ell:
     # sentinel R*K for unmaterialized diff rows
     lane2slot: torch.Tensor
     n: int
+    # (n+1,) int32: vertex v owns rows [offsets[v], offsets[v+1]).  Derived
+    # from row2dst, so it is not part of the saved state.
+    offsets: torch.Tensor = dataclasses.field(metadata={"derived": True})
 
     @property
     def R(self) -> int:
@@ -43,7 +47,8 @@ class Ell:
         return int(self.ell_src.shape[1])
 
 
-_ELL_FIELDS = tuple(f.name for f in dataclasses.fields(Ell) if f.name != "n")
+_ELL_FIELDS = tuple(f.name for f in dataclasses.fields(Ell)
+                    if f.name != "n" and not f.metadata.get("derived"))
 
 
 def ell_state(e: Ell) -> dict:
@@ -53,7 +58,11 @@ def ell_state(e: Ell) -> dict:
 
 
 def ell_from_state(tree: dict, n: int, device) -> Ell:
-    return Ell(**{f: to_device(tree[f], device) for f in _ELL_FIELDS}, n=n)
+    fields = {f: to_device(tree[f], device) for f in _ELL_FIELDS}
+    # rows are grouped by vertex in order, the unused ones (n) last
+    bounds = torch.arange(n + 1, dtype=INT, device=device)
+    offsets = torch.searchsorted(fields["row2dst"], bounds, out_int32=True)
+    return Ell(**fields, n=n, offsets=offsets)
 
 
 def ell_capacity(n: int, e_cap: int, k: int, row_tile: int = 128) -> int:
@@ -111,7 +120,7 @@ def _pack(n, eother, egroup, ew, emat, ealive, k, row_tile) -> Ell:
     lane2slot = torch.empty((E,), dtype=INT, device=dev)
     lane2slot[order] = flat
     return Ell(ell_src=ell_src.reshape(R, k), ell_w=ell_w.reshape(R, k),
-               row2dst=row2dst, lane2slot=lane2slot, n=n)
+               row2dst=row2dst, lane2slot=lane2slot, n=n, offsets=base)
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,10 @@ min-plus candidate, the smallest source reaching it, the frontier flag,
 and the frontier row ids compacted inside each block of ``block`` rows
 (sentinel R after each block's count), plus per-block counts.
 
+``fused_spmv_rows`` — one launch per PageRank sweep: per ELL row the
+float sum of ``vals[src]`` (K lanes added left to right), and the ids of
+the rows that belong to a vertex (``row2dst < n``) compacted per block.
+
 ``merge_pool_sorted`` — the ΔG sorted merge for ``update_csr_add``: one
 merge-path binary search per output slot folds the sorted admitted batch
 into the sorted diff pool; the pool wins ties.
@@ -21,49 +25,27 @@ output slot, 256 to a block.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 
 import torch
 
 from repro_torch.graph.csr import INT
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import check, cuda_device, ptr, raise_on
+from repro_torch.kernels._build import stream as _stream
 from repro_torch.kernels.ell import ell_capacity
 
 ROW_TILE = 128          # ELL row rounding; a block size that always divides R
 DEFAULT_BLOCK = 256     # rows per CUDA block of fused_relax_rows
 
-LAUNCHES = {"fused_relax_rows": 0, "merge_pool_sorted": 0}
+LAUNCHES = {"fused_relax_rows": 0, "fused_spmv_rows": 0,
+            "merge_pool_sorted": 0}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _check(name: str, dev: torch.device, **tensors) -> None:
-    for arg, (t, dtype) in tensors.items():
-        if t.device != dev:
-            raise ValueError(f"{name}: {arg} is on {t.device}, expected {dev}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name}: {arg} has dtype {t.dtype}, "
-                            f"expected {dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(dev: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-
-
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
 
 
 # ---------------------------------------------------------------------------
@@ -72,6 +54,26 @@ def _raise_on(err: int, name: str) -> None:
 
 def _relax_block(R: int, block: int) -> int:
     return block if R % block == 0 else ROW_TILE
+
+
+def _row_block(name: str, R: int, block: int) -> int:
+    bt = _relax_block(R, block)
+    if R % bt or bt % 32 or not 32 <= bt <= 1024:
+        raise ValueError(f"{name}: R={R} needs a block of a multiple of 32 "
+                         f"rows that divides it, got {bt}")
+    return bt
+
+
+def _compact_rows(hit: torch.Tensor, R: int, bt: int):
+    """The in-block compaction of both fused kernels: the ids of hit rows
+    packed to the front of each block of ``bt`` rows (sentinel R after the
+    block's count), and the per-block counts."""
+    hit = hit.reshape(R // bt, bt)
+    pos = torch.cumsum(hit, dim=1, dtype=INT) - 1
+    rowid = torch.arange(R, dtype=INT, device=hit.device).reshape(R // bt, bt)
+    tiles = torch.full((R // bt, bt + 1), R, dtype=INT, device=hit.device)
+    tiles.scatter_(1, torch.where(hit, pos, bt).to(torch.int64), rowid)
+    return tiles[:, :bt].reshape(R), hit.sum(dim=1, dtype=INT)
 
 
 def fused_relax_rows_plain(ell_src, ell_w, vals, block: int):
@@ -83,13 +85,8 @@ def fused_relax_rows_plain(ell_src, ell_w, vals, block: int):
     cand = vals[s] + ell_w
     rmin = cand.min(dim=1).values
     rarg = torch.where(cand == rmin[:, None], ell_src, n).min(dim=1).values
-    hit = (rmin < vals[n]).reshape(R // bt, bt)
-    pos = torch.cumsum(hit, dim=1, dtype=INT) - 1
-    rowid = torch.arange(R, dtype=INT, device=vals.device).reshape(R // bt, bt)
-    tiles = torch.full((R // bt, bt + 1), R, dtype=INT, device=vals.device)
-    tiles.scatter_(1, torch.where(hit, pos, bt).to(torch.int64), rowid)
-    rows = tiles[:, :bt].reshape(R)
-    return rmin, rarg, rows, hit.sum(dim=1, dtype=INT)
+    rows, counts = _compact_rows(rmin < vals[n], R, bt)
+    return rmin, rarg, rows, counts
 
 
 def fused_relax_rows(ell_src, ell_w, vals, *, block: int = DEFAULT_BLOCK):
@@ -97,30 +94,73 @@ def fused_relax_rows(ell_src, ell_w, vals, *, block: int = DEFAULT_BLOCK):
     R, K = ell_src.shape
     if vals.device.type == "cpu":
         return fused_relax_rows_plain(ell_src, ell_w, vals, block)
-    dev = vals.device
-    if dev.type != "cuda":
-        raise ValueError(f"fused_relax_rows: unsupported device {dev}")
-    _check("fused_relax_rows", dev, ell_src=(ell_src, INT),
-           ell_w=(ell_w, INT), vals=(vals, INT))
+    dev = cuda_device("fused_relax_rows", vals)
+    check("fused_relax_rows", dev, ell_src=(ell_src, INT),
+          ell_w=(ell_w, INT), vals=(vals, INT))
     if ell_w.shape != ell_src.shape:
         raise ValueError("fused_relax_rows: ell_w must match ell_src's shape")
-    bt = _relax_block(R, block)
-    if R % bt or bt % 32 or not 32 <= bt <= 1024:
-        raise ValueError(f"fused_relax_rows: R={R} needs a block of a "
-                         f"multiple of 32 rows that divides it, got {bt}")
+    bt = _row_block("fused_relax_rows", R, block)
     n = vals.shape[0] - 1
-    from repro_torch.kernels import _build
     lib = _build.load()
     row_min = torch.empty((R,), dtype=INT, device=dev)
     row_arg = torch.empty((R,), dtype=INT, device=dev)
     rows = torch.empty((R,), dtype=INT, device=dev)
     counts = torch.empty((R // bt,), dtype=INT, device=dev)
     err = lib.repro_fused_relax_rows(
-        _ptr(ell_src), _ptr(ell_w), _ptr(vals), _ptr(row_min),
-        _ptr(row_arg), _ptr(rows), _ptr(counts), R, K, n, bt, _stream(dev))
-    _raise_on(err, "fused_relax_rows")
+        ptr(ell_src), ptr(ell_w), ptr(vals), ptr(row_min), ptr(row_arg),
+        ptr(rows), ptr(counts), R, K, n, bt, _stream(dev))
+    raise_on(err, "fused_relax_rows")
     LAUNCHES["fused_relax_rows"] += 1
     return row_min, row_arg, rows, counts
+
+
+# ---------------------------------------------------------------------------
+# fused SpMV: gather → row sum → materialized-row flag → compact, one launch
+# ---------------------------------------------------------------------------
+
+def row_sum_plain(ell_src, vals):
+    """``sum_k vals[src[r, k]]`` with the K lanes added left to right by
+    explicit adds, the order the kernels keep (``sum(dim=1)`` fixes
+    none)."""
+    g = vals[ell_src.to(torch.int64)]
+    acc = g[:, 0]
+    for k in range(1, g.shape[1]):
+        acc = acc + g[:, k]
+    return acc
+
+
+def fused_spmv_rows_plain(ell_src, row2dst, vals, block: int):
+    """The plain version: same outputs, same per-block compaction."""
+    R, _ = ell_src.shape
+    n = vals.shape[0] - 1
+    rows, counts = _compact_rows(row2dst < n, R, _relax_block(R, block))
+    return row_sum_plain(ell_src, vals), rows, counts
+
+
+def fused_spmv_rows(ell_src, row2dst, vals, *, block: int = DEFAULT_BLOCK):
+    """(row_sum, compacted materialized rows, per-block counts): per ELL
+    row the float sum of ``vals[src]`` over its K slots, and the ids of
+    the rows that belong to a vertex (``row2dst < n``)."""
+    R, K = ell_src.shape
+    if vals.device.type == "cpu":
+        return fused_spmv_rows_plain(ell_src, row2dst, vals, block)
+    dev = cuda_device("fused_spmv_rows", vals)
+    check("fused_spmv_rows", dev, ell_src=(ell_src, INT),
+          row2dst=(row2dst, INT), vals=(vals, torch.float32))
+    if row2dst.shape != (R,):
+        raise ValueError("fused_spmv_rows: row2dst must be (R,)")
+    bt = _row_block("fused_spmv_rows", R, block)
+    n = vals.shape[0] - 1
+    lib = _build.load()
+    row_sum = torch.empty((R,), dtype=torch.float32, device=dev)
+    rows = torch.empty((R,), dtype=INT, device=dev)
+    counts = torch.empty((R // bt,), dtype=INT, device=dev)
+    err = lib.repro_fused_spmv_rows(
+        ptr(ell_src), ptr(row2dst), ptr(vals), ptr(row_sum), ptr(rows),
+        ptr(counts), R, K, n, bt, _stream(dev))
+    raise_on(err, "fused_spmv_rows")
+    LAUNCHES["fused_spmv_rows"] += 1
+    return row_sum, rows, counts
 
 
 # ---------------------------------------------------------------------------
@@ -178,28 +218,25 @@ def merge_pool_sorted(d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w,
     if d_src.device.type == "cpu":
         return merge_pool_sorted_plain(d_src, d_dst, d_w, d_alive, f_src,
                                        f_dst, f_w, f_alive, n)
-    dev = d_src.device
-    if dev.type != "cuda":
-        raise ValueError(f"merge_pool_sorted: unsupported device {dev}")
+    dev = cuda_device("merge_pool_sorted", d_src)
     b = torch.bool
-    _check("merge_pool_sorted", dev, d_src=(d_src, INT), d_dst=(d_dst, INT),
-           d_w=(d_w, INT), d_alive=(d_alive, b), f_src=(f_src, INT),
-           f_dst=(f_dst, INT), f_w=(f_w, INT), f_alive=(f_alive, b))
+    check("merge_pool_sorted", dev, d_src=(d_src, INT), d_dst=(d_dst, INT),
+          d_w=(d_w, INT), d_alive=(d_alive, b), f_src=(f_src, INT),
+          f_dst=(f_dst, INT), f_w=(f_w, INT), f_alive=(f_alive, b))
     if any(t.shape != (D,) for t in (d_dst, d_w, d_alive)) or \
             any(t.shape != (B,) for t in (f_dst, f_w, f_alive)):
         raise ValueError("merge_pool_sorted: pool arrays must be (D,) and "
                          "batch arrays (B,)")
     if D < 1 or B < 1:
         raise ValueError(f"merge_pool_sorted: needs D, B >= 1, got {D}, {B}")
-    from repro_torch.kernels import _build
     lib = _build.load()
     out = [torch.empty((D,), dtype=INT, device=dev) for _ in range(3)]
     out.append(torch.empty((D,), dtype=b, device=dev))
     err = lib.repro_merge_pool_sorted(
-        *(_ptr(t) for t in (d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w,
+        *(ptr(t) for t in (d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w,
                             f_alive, *out)),
         D, B, n, _merge_iters(B), _stream(dev))
-    _raise_on(err, "merge_pool_sorted")
+    raise_on(err, "merge_pool_sorted")
     LAUNCHES["merge_pool_sorted"] += 1
     return tuple(out)
 

@@ -11,6 +11,8 @@ idioms PyTorch has no single call for.
   with JAX's fill for empty segments (the dtype's max / min / zero).
   Integer min, max and sum are exact in any order, so the atomics the
   card uses for ``scatter_reduce`` / ``index_add_`` stay deterministic.
+  Float sums are not: they add each segment's lanes in lane order
+  (``kernels/segment.py``), after a stable sort by segment id.
 * ``cumsum32`` — ``torch.cumsum`` promotes int32 to int64; cast back.
 * ``take`` — a JAX gather ``x[i]``: negative indices count from the end
   and the rest are clamped into range, where torch would raise (and the
@@ -76,11 +78,16 @@ def segment_max(vals: torch.Tensor, seg: torch.Tensor,
 
 def segment_sum(vals: torch.Tensor, seg: torch.Tensor,
                 num: int) -> torch.Tensor:
+    """``jax.ops.segment_sum``: ids outside ``[0, num)`` are dropped.  A
+    float sum adds each segment's lanes in lane order, after a stable sort
+    of the lanes by segment id."""
     if vals.dtype.is_floating_point:
-        # atomics add floats in a different order on every run
-        raise NotImplementedError(
-            "deterministic float segment sums come with the PageRank slice "
-            "(ROADMAP Queue 1 item 7)")
+        from repro_torch.kernels.segment import segment_sum_sorted
+        order = torch.argsort(seg, stable=True)
+        bounds = torch.arange(num + 1, dtype=seg.dtype, device=seg.device)
+        offsets = torch.searchsorted(seg[order], bounds, out_int32=True)
+        return segment_sum_sorted(vals.contiguous(), order.to(torch.int32),
+                                  offsets)
     out = torch.zeros((num,), dtype=vals.dtype, device=vals.device)
     return out.index_add_(0, seg.to(torch.int64), vals)
 

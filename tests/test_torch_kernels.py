@@ -1,8 +1,11 @@
-"""The repair kernels' plain versions against repro's Pallas kernels
-(interpret mode) on the CPU.  The CUDA kernels against their plain
-versions on the card: tests/test_torch_cuda.py.
+"""The kernels' plain versions against repro's Pallas kernels (interpret
+mode) on the CPU: the fused repair kernels and the chained row kernels.
+The CUDA kernels against their plain versions on the card:
+tests/test_torch_cuda.py.
 
-All outputs are int32 or bool: every comparison is bit-exact."""
+Integer and bool outputs are compared bit for bit.  Float row sums agree
+to rtol 1e-6: the plain versions add the K lanes left to right, the
+Pallas kernels in whatever order XLA's reduction takes."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -10,14 +13,19 @@ import pytest
 import torch
 
 from repro.graph import build_csr as r_build_csr, from_csr as r_from_csr
+from repro.kernels import csr_relax as RC
 from repro.kernels import ops as rops
 from repro.kernels import pallas_repair as RK
 from repro.kernels.ell import pack_ell as r_pack_ell
 from repro_torch.graph import build_csr as t_build_csr, from_csr as t_from_csr
 from repro_torch.graph import diffcsr as td
 from repro_torch.graph.csr import INF_W
+from repro_torch.kernels import csr_relax as TC
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import repair as TK
+from repro_torch.kernels import segment as TS
+from repro_torch.tensors import segment_sum
+from repro_torch.kernels import ell as tell
 from repro_torch.kernels.ell import pack_ell as t_pack_ell
 
 
@@ -74,6 +82,123 @@ def test_vertex_relax_fused_matches(relax_refs, case):
                                   block=case[3])
     for name, g, w in zip(("vmin", "parent", "hit"), got, want):
         assert np.array_equal(g.numpy(), w), name
+
+
+def float_vals(seed, n):
+    """(n+1,) float32 PageRank-like contributions, 0.0 at slot n."""
+    rng = np.random.default_rng(seed)
+    v = rng.random(n).astype(np.float32) / n
+    v[rng.random(n) < 0.2] = 0.0
+    return np.concatenate([v, [0.0]]).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def spmv_refs():
+    """repro's fused_spmv_rows, csr_relax kernels and vertex ops, once per
+    case, on integer and float vals."""
+    out = {}
+    for n, e, k, block in CASES:
+        ref, port, vals = random_ells(n + e, n, e, k)
+        fvals = float_vals(e, n)
+        jv, jf = jnp.asarray(vals), jnp.asarray(fvals)
+        vmin = rops.vertex_min_plus(ref, jv)
+        got = dict(
+            fused=RK.fused_spmv_rows(ref.ell_src, ref.row2dst, jf,
+                                     block=block),
+            rowmin=RC.relax_rowmin(ref.ell_src, ref.ell_w, jv),
+            rowsum=RC.spmv_rowsum(ref.ell_src, jf),
+            rowargmin=RC.relax_rowargmin(
+                ref.ell_src, ref.ell_w, jv,
+                jnp.concatenate([vmin, jnp.full((1,), INF_W, vmin.dtype)])[
+                    jnp.minimum(ref.row2dst, n)], n=n),
+            vertex_min=vmin, vertex_arg=rops.vertex_argmin_src(ref, jv, vmin),
+            vertex_sum=rops.vertex_spmv(ref, jf),
+            fused_vertex=rops.vertex_spmv_fused(ref, jf, block=block))
+        out[(n, e, k, block)] = (port, vals, fvals, jax.tree_util.tree_map(
+            np.asarray, got))
+    return out
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_spmv_rows_plain_matches_pallas(spmv_refs, case):
+    """row_sum to rtol 1e-6; the compacted rows and counts bit for bit."""
+    port, _, fvals, want = spmv_refs[case]
+    row_sum, rows, counts = TK.fused_spmv_rows(
+        port.ell_src, port.row2dst, torch.from_numpy(fvals), block=case[3])
+    assert row_sum.dtype == torch.float32
+    np.testing.assert_allclose(row_sum.numpy(), want["fused"][0], rtol=1e-6,
+                               atol=0)
+    assert np.array_equal(rows.numpy(), want["fused"][1])
+    assert np.array_equal(counts.numpy(), want["fused"][2])
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_chained_plain_matches_pallas(spmv_refs, case):
+    """relax_rowmin and relax_rowargmin bit for bit, spmv_rowsum to rtol
+    1e-6, and the vertex ops over them."""
+    port, vals, fvals, want = spmv_refs[case]
+    n = case[0]
+    v, fv = torch.from_numpy(vals), torch.from_numpy(fvals)
+    assert np.array_equal(TC.relax_rowmin(port.ell_src, port.ell_w, v).numpy(),
+                          want["rowmin"])
+    vmin = tops.vertex_min_plus(port, v)
+    assert np.array_equal(vmin.numpy(), want["vertex_min"])
+    tgt = torch.cat([vmin, vmin.new_full((1,), INF_W)])[
+        port.row2dst.clamp(max=n)]
+    assert np.array_equal(TC.relax_rowargmin(port.ell_src, port.ell_w, v,
+                                             tgt, n=n).numpy(),
+                          want["rowargmin"])
+    assert np.array_equal(tops.vertex_argmin_src(port, v, vmin).numpy(),
+                          want["vertex_arg"])
+    np.testing.assert_allclose(TC.spmv_rowsum(port.ell_src, fv).numpy(),
+                               want["rowsum"], rtol=1e-6, atol=0)
+    np.testing.assert_allclose(tops.vertex_spmv(port, fv).numpy(),
+                               want["vertex_sum"], rtol=1e-6, atol=0)
+    vsum, hit = tops.vertex_spmv_fused(port, fv, block=case[3])
+    np.testing.assert_allclose(vsum.numpy(), want["fused_vertex"][0],
+                               rtol=1e-6, atol=0)
+    assert np.array_equal(hit.numpy(), want["fused_vertex"][1])
+    # fused and chained regimes: the same row sums, the same vertex sums
+    assert torch.equal(vsum, tops.vertex_spmv(port, fv))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_float_segment_sum_adds_in_lane_order(seed):
+    """The float segment sum adds each segment's lanes in lane order from
+    0.0 — the order of XLA's scatter on the CPU, so jax.ops.segment_sum
+    agrees bit for bit; ids out of range are dropped; lanes already
+    grouped by segment, summed with no sort over their offsets (as the
+    ELL vertex combine does), give the same bits."""
+    rng = np.random.default_rng(seed)
+    v = (rng.standard_normal(3000)
+         * 10.0 ** rng.integers(-3, 4, 3000)).astype(np.float32)
+    s = rng.integers(-2, 62, 3000).astype(np.int32)
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(v), jnp.asarray(s),
+                                          num_segments=60))
+    got = segment_sum(torch.from_numpy(v), torch.from_numpy(s), 60)
+    assert np.array_equal(got.numpy(), want)
+    order = np.argsort(s, kind="stable")
+    offsets = np.searchsorted(s[order], np.arange(61)).astype(np.int32)
+    grouped = TS.segment_sum_sorted(torch.from_numpy(v[order]), None,
+                                    torch.from_numpy(offsets))
+    assert torch.equal(grouped, got)
+
+
+@pytest.mark.parametrize("case", CASES[:1])
+def test_ell_offsets_bound_each_vertex_rows(case):
+    """The pack's vertex row offsets: vertex v owns rows
+    [offsets[v], offsets[v+1]), the unused rows come after offsets[n],
+    and a restore from the saved state derives the same offsets."""
+    n, e, k, _ = case
+    _, port, _ = random_ells(n + e, n, e, k)
+    off = port.offsets.long()
+    assert port.offsets.dtype == torch.int32 and off.shape == (n + 1,)
+    owner = torch.repeat_interleave(torch.arange(n), off[1:] - off[:-1])
+    assert torch.equal(port.row2dst[:int(off[n])].long(), owner)
+    assert bool((port.row2dst[int(off[n]):] == n).all())
+    back = tell.ell_from_state(tell.ell_state(port), n, "cpu")
+    assert "offsets" not in tell.ell_state(port)
+    assert torch.equal(back.offsets, port.offsets)
 
 
 def test_relax_compaction_invariants():
@@ -166,9 +291,20 @@ def test_repair_config_matches_heuristic():
 
 def test_cpu_wrappers_count_no_launch():
     """On CPU tensors the wrappers run the plain versions: no launch."""
-    TK.reset_launches()
+    for mod in (TK, TC, TS):
+        mod.reset_launches()
     _, port, vals = random_ells(1, 64, 256, 8)
-    TK.fused_relax_rows(port.ell_src, port.ell_w, torch.from_numpy(vals))
+    v, fv = torch.from_numpy(vals), torch.from_numpy(float_vals(1, 64))
+    TK.fused_relax_rows(port.ell_src, port.ell_w, v)
+    TK.fused_spmv_rows(port.ell_src, port.row2dst, fv)
     arrays = [torch.from_numpy(a) for a in merge_inputs(0)]
     TK.merge_pool_sorted(*arrays, n=40)
-    assert TK.LAUNCHES == {"fused_relax_rows": 0, "merge_pool_sorted": 0}
+    TC.relax_rowmin(port.ell_src, port.ell_w, v)
+    TC.spmv_rowsum(port.ell_src, fv)
+    TC.relax_rowargmin(port.ell_src, port.ell_w, v, port.row2dst, n=64)
+    tops.vertex_spmv(port, fv)
+    assert TK.LAUNCHES == {"fused_relax_rows": 0, "fused_spmv_rows": 0,
+                           "merge_pool_sorted": 0}
+    assert TC.LAUNCHES == {"relax_rowmin": 0, "spmv_rowsum": 0,
+                           "relax_rowargmin": 0}
+    assert TS.LAUNCHES == {"segment_sum_sorted": 0}

@@ -19,7 +19,7 @@ import repro_torch
 from repro_torch.algos import oracles
 from repro_torch.algos import sssp as t_sssp
 from repro_torch.core.engine import props_from_numpy
-from conformance import digraph_scenario
+from conformance import Scenario, digraph_scenario
 
 SCENARIOS = ["batch1", "batch8", "batch64", "empty", "self_loops",
              "dup_in_batch", "del_then_readd", "overflow"]
@@ -35,10 +35,13 @@ def scenario(name):
 
 
 def host_tree(obj):
-    """Dataclass fields (recursively) as numpy arrays, ints as ints."""
+    """Dataclass fields (recursively) as numpy arrays, ints as ints; the
+    port's derived fields (the ELL's vertex row offsets, which repro's
+    pack does not keep) are left out."""
     if dataclasses.is_dataclass(obj):
         return {f.name: host_tree(getattr(obj, f.name))
-                for f in dataclasses.fields(obj)}
+                for f in dataclasses.fields(obj)
+                if not f.metadata.get("derived")}
     if isinstance(obj, torch.Tensor):
         return obj.cpu().numpy()
     return obj if isinstance(obj, int) else np.array(obj)
@@ -85,6 +88,67 @@ def run_port(sc, backend):
         host_tree(sess.handle)
 
 
+def segment_scenario(kind):
+    """Eight batches of 4 fresh adds and 4 deletes on batch8's graph: one
+    segment of the reference's stream executor (``segment_size=8``).
+
+    * ``overflow``: a 14-slot pool; batches 0-2 fill 12 slots and batch 3
+      overflows it, mid-segment.
+    * ``compact``: batches 0-1 delete base edges and batch k >= 2 deletes
+      batch k-2's adds, so 4(k-1) pool rows are dead after batch k; with
+      36 slots that crosses ``compact_frac`` (18) in batch 6,
+      mid-segment."""
+    base = digraph_scenario("batch8")
+    n, e = base.n, base.edges
+    rng = np.random.default_rng(31)
+    taken, fresh = set(map(tuple, e.tolist())), []
+    while len(fresh) < 32:
+        u, v = (int(x) for x in rng.integers(0, n, 2))
+        if u != v and (u, v) not in taken:
+            taken.add((u, v))
+            fresh.append((u, v))
+    fresh = np.asarray(fresh)
+    adds = np.concatenate([fresh, rng.integers(1, 50, (32, 1))], axis=1)
+    if kind == "overflow":
+        dels, cap = e[rng.choice(len(e), 32, replace=False)], 14
+    else:
+        dels = np.concatenate([e[rng.choice(len(e), 8, replace=False)],
+                               fresh[:24]])
+        cap = 36
+    stream = type(base.stream)(adds=adds.astype(np.int32),
+                               dels=dels.astype(np.int32))
+    return Scenario(f"segment_{kind}", n, e, base.w, stream, batch_size=4,
+                    diff_capacity=cap)
+
+
+SEGMENT_KINDS = ["overflow", "compact"]
+
+
+@pytest.fixture(scope="module")
+def segment_refs():
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        return dict(zip(SEGMENT_KINDS, pool.map(
+            lambda kind: run_ref(segment_scenario(kind)), SEGMENT_KINDS)))
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"])
+@pytest.mark.parametrize("kind", SEGMENT_KINDS)
+def test_stream_executor_keeps_segments(segment_refs, kind, backend):
+    """An overflow or a compaction that falls due inside a segment of 8
+    batches is handled at the segment's end, as the reference's executor
+    does: the pool and ELL layouts and dist/parent agree bit for bit."""
+    sc = segment_scenario(kind)
+    want_props, want_handle, _ = segment_refs[kind]
+    props, handle = run_port(sc, backend)
+    for k in ("dist", "parent", "modified"):
+        assert np.array_equal(props[k], want_props[k]), k
+    assert_tree_equal(want_handle if backend == "cuda" else
+                      want_handle["g"], handle)
+    g = handle if backend == "torch" else handle["g"]
+    if kind == "overflow":
+        assert g["d_src"].shape[0] > sc.diff_capacity
+
+
 @pytest.fixture(scope="module")
 def refs():
     """repro's pallas-backend results, once per scenario; batch1 runs its
@@ -126,6 +190,28 @@ def test_slice_matches_reference(refs, name, backend):
                                            sc.stream.adds, sc.stream.dels)
     assert np.array_equal(props["dist"],
                           oracles.sssp_oracle(sc.n, edges, w, sc.src))
+
+
+CHAINED_SCENARIOS = ["batch8", "del_then_readd", "overflow"]
+
+
+@pytest.fixture(scope="module")
+def chained_refs():
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        return dict(zip(CHAINED_SCENARIOS, pool.map(
+            lambda name: run_ref(scenario(name), backend="pallas_chained"),
+            CHAINED_SCENARIOS)))
+
+
+@pytest.mark.parametrize("name", CHAINED_SCENARIOS)
+def test_chained_matches_reference(chained_refs, name):
+    """cuda_chained (relax_rowmin → vertex combine → relax_rowargmin, the
+    scatter path for adds) against repro's pallas_chained, bit for bit."""
+    want_props, want_handle, _ = chained_refs[name]
+    props, handle = run_port(scenario(name), "cuda_chained")
+    for k in ("dist", "parent", "modified"):
+        assert np.array_equal(props[k], want_props[k]), k
+    assert_tree_equal(want_handle, handle)
 
 
 def test_overflow_scenario_grows_the_pool():
