@@ -42,12 +42,35 @@ Phases (any failure exits non-zero):
    (another summation order: max 1e-6 and 1e-4 of max(pr), L1 1e-4 and
    1e-5 of sum(pr)), and within a stated L1 bound of a float64 power
    iteration by scipy over the post-update edge set.
+5. LM serving, after the graph paths' memory is freed: starcoder2-7b at
+   full width and depth (32 layers, 10.12 B parameters, bf16, weights
+   from a seeded ``torch.Generator`` on the card) through
+   ``repro_torch.launch.serve``'s calls on the ``cuda`` backend: a
+   prefill of 4 prompts of 2,048 tokens, which must launch
+   ``flash_attention`` once per layer (32 times) and no graph kernel,
+   then 32 greedy decode steps, which launch no kernel of ours.  Prefill
+   and decode times, peak memory, and the prefill's last-position logits
+   against the ``torch`` backend's (the same weights with the reference's
+   chunked attention, a bf16 accumulator) within 0.25 of their std;
+   every layer's kernel launch against the plain version on that layer's
+   own q, k, v (bf16, relative: see below); and the logits against the
+   same model with the plain version in the kernel's place, within 0.25
+   std and a mean |d| at most twice that of the plain version against
+   itself over 256-key blocks; every decoded token in range.  ``flash_attention`` against its
+   plain version at the prefill's shape and four small ones (float32
+   2e-5; bf16 3e-2 and, relative to the values, 2^-7 * A + 2^-6 * |want|
+   elementwise, A the attention of |v|, and 1e-2 normwise; softcap rtol
+   1e-4 / atol 1e-5), timed
+   at the prefill's shape beside its bound and
+   ``scaled_dot_product_attention`` as the yardstick.  The graph paths
+   must not launch it.
 
 The last two lines are the kernels' JSON record and the device record.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -64,6 +87,10 @@ DEGREE, PERCENT, BATCH = 16, 1.0, 65536
 PR_KNOBS = (1e-4, 0.85, 100)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+TENSOR_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
+# LM serving: starcoder2-7b at full width and depth, 4 prompts of 2,048
+# tokens, 32 greedy tokens
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "starcoder2-7b", 4, 2048, 32
 L2_FLUSH_BYTES = 256 << 20
 DEV = "cuda"
 
@@ -133,9 +160,9 @@ def max_abs_err(torch, got, want) -> float:
     return err
 
 
-def bound(bytes_moved: int, ops: int):
+def bound(bytes_moved: int, ops: int, ops_per_s=CUDA_CORE_OPS_PER_S):
     b_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / CUDA_CORE_OPS_PER_S * 1e3
+    o_ms = ops / ops_per_s * 1e3
     return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
 
@@ -215,7 +242,8 @@ def drive(torch, repro_torch, counts, csr, stream, tag, backend, static,
         f"stream {times[2]:.3f} s ({ups:.0f} updates/s) | launches "
         f"{ {k: v for k, v in launches.items() if v} } | peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    require(launches, launched, silent, per_batch)
+    require(launches, launched, tuple(silent) + ("flash_attention",),
+            per_batch)
     return sess, props, launches
 
 
@@ -233,40 +261,42 @@ def require(launches, launched=(), silent=(), per_batch=None):
                              f"{per_batch} add batches")
 
 
-def profile_path(torch, repro_torch, csr, stream, static, step, tag):
-    """A cuda path once more under torch.profiler: device time by kernel
-    for the static run and for the stream, and the device's busy share of
-    each window's wall time (kernel rows only: an operator's row repeats
-    its kernels' time)."""
+def profile_window(torch, tag, fn):
+    """``fn()`` under torch.profiler: device time by kernel and the
+    device's busy share of the window's wall time (kernel rows only: an
+    operator's row repeats its kernels' time).  Returns fn's result."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [r for r in prof.key_averages() if r.device_type != DeviceType.CPU]
+    dev_us = lambda r: getattr(r, "self_device_time_total",
+                               getattr(r, "self_cuda_time_total", 0))
+    busy = sum(dev_us(r) for r in rows) / 1e6
+    launches = sum(r.count for r in rows)
+    log(f"[profile] {tag}: wall {wall:.3f} s, device busy {busy:.3f} s "
+        f"({100 * busy / wall:.1f}%), {launches} kernel launches of "
+        f"{len(rows)} kinds")
+    for r in sorted(rows, key=dev_us, reverse=True)[:12]:
+        log(f"[profile]   {dev_us(r) / 1e3:10.2f} ms  {r.count:6d} calls"
+            f"  {r.key[:100]}")
+    return out
+
+
+def profile_path(torch, repro_torch, csr, stream, static, step, tag):
+    """A cuda path once more under torch.profiler: the static run, then
+    the stream."""
     sess = repro_torch.bind_graph(csr, backend="cuda",
                                   capacity=2 * stream.num_adds, device=DEV)
     sess.handle
-    props = None
-    for name in ("static", "stream"):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            if props is None:
-                props = sess.call(*static)
-            else:
-                props = sess.run_stream(stream, BATCH, step, props)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = [r for r in prof.key_averages()
-                if r.device_type != DeviceType.CPU]
-        dev_us = lambda r: getattr(r, "self_device_time_total",
-                                   getattr(r, "self_cuda_time_total", 0))
-        busy = sum(dev_us(r) for r in rows) / 1e6
-        launches = sum(r.count for r in rows)
-        log(f"[profile] {tag} {name}: wall {wall:.3f} s, device busy "
-            f"{busy:.3f} s ({100 * busy / wall:.1f}%), {launches} kernel "
-            f"launches of {len(rows)} kinds")
-        for r in sorted(rows, key=dev_us, reverse=True)[:12]:
-            log(f"[profile]   {dev_us(r) / 1e3:10.2f} ms  {r.count:6d} calls"
-                f"  {r.key[:100]}")
+    props = profile_window(torch, f"{tag} static", lambda: sess.call(*static))
+    profile_window(torch, f"{tag} stream", lambda: sess.run_stream(
+        stream, BATCH, step, props))
     del sess
 
 
@@ -316,13 +346,294 @@ def pagerank_f64(np, edges, n, delta, tol=1e-13, max_iter=1000):
     return x
 
 
+def close_enough(torch, got, want, atol: float, rtol: float = 0.0) -> float:
+    """The largest |got - want|; raises unless every element lies within
+    atol + rtol * |want| (same shape and dtype)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"shape/dtype mismatch {got.shape} {got.dtype} "
+                             f"vs {want.shape} {want.dtype}")
+    d = (got.double() - want.double()).abs()
+    err = float(d.max())
+    if not bool((d <= atol + rtol * want.double().abs()).all()):
+        raise AssertionError(f"max abs err {err} beyond atol {atol} + rtol "
+                             f"{rtol}")
+    return err
+
+
+# flash_attention against its plain version: the LM prefill's shape first
+# (B * heads, prompt, dh), then the small shapes of tests/test_kernels.py.
+# Tolerances are that file's (Pallas interpret vs the XLA oracle), but
+# float32 takes 2e-5 for 1e-5: the kernel's expf and its per-tile sums
+# against torch.exp and cuBLAS's order in the plain version.  bf16 is
+# also held relative to the values: at the prefill's shape a causal row i
+# averages v over i + 1 keys, so most outputs are ~0.03-0.05 and the flat
+# 3e-2 would let a wrong rescale or a dropped tile through.  Both versions
+# keep float32 state and round P to bf16 (each p_j to within 2^-9 of
+# itself, against a running max that differs with the tiling) and the
+# output once, so for an output o = sum_j p_j v_j / l
+#     |got - want| <= 2^-8 * A + 2^-7 * |want|,  A = sum_j p_j |v_j| / l
+# (A: the attention of |v|).  The limit doubles both terms, and the
+# normwise ||got - want|| / ||want|| must stay below 1e-2.
+BF16_REL = (2.0 ** -7, 2.0 ** -6, 1e-2)  # times A, times |want|, normwise
+FLASH_CASES = [  # shape, dtype, causal, softcap, atol, rtol
+    ((LM_BATCH * 36, LM_PROMPT, 128), "bfloat16", True, None, 3e-2, 0.0),
+    ((2, 256, 128), "float32", True, None, 2e-5, 0.0),
+    ((2, 256, 128), "float32", False, None, 2e-5, 0.0),
+    ((2, 512, 64), "bfloat16", True, None, 3e-2, 0.0),
+    ((2, 256, 256), "float32", True, 30.0, 1e-5, 1e-4),
+]
+# cuda vs torch prefill logits at full depth.  The backends differ only
+# in prefill attention: the kernel keeps a float32 accumulator, the
+# reference's chunked schedule a bf16 one, and 32 layers carry that bf16
+# rounding into the residual stream.
+LM_LOGIT_TOL = 0.25            # times the std of the torch logits
+# cuda vs the same model with the kernel's plain version in its place (the
+# kernel's own contract: float32 state, one rounding to bf16).  Each layer
+# is held to BF16_REL on its own inputs.  End to end, 32 layers of random
+# weights carry an ulp that two bf16 roundings put apart to ~0.1 of the
+# logits' std (0.098 on an H100), so the yardstick is the plain version
+# against itself with its sums in another order (256-key KV blocks for
+# 512): the kernel's mean |d| may be at most LM_PLAIN_MEAN times that, and
+# its max within LM_LOGIT_TOL std.
+LM_PLAIN_MEAN = 2.0
+
+
+def bf16_err(FA, got, want, q, k, v, **kw) -> tuple:
+    """A bf16 attention output against its plain version on q, k, v: the
+    largest share of the elementwise limit of BF16_REL, the normwise error,
+    and the largest share of a value-only limit, 2e-3 + 1.6e-2 * |want|
+    (two ulps of the value), which leaves out P's rounding."""
+    c_abs, c_want, _ = BF16_REL
+    A = FA.flash_attention_plain(q, k, v.abs(), **kw).double()
+    d, w = (got.double() - want.double()).abs(), want.double()
+    return (float((d / (c_abs * A + c_want * w.abs())).max()),
+            float(d.norm() / w.norm()),
+            float((d / (2e-3 + 1.6e-2 * w.abs())).max()))
+
+
+def bf16_rel(FA, got, want, q, k, v, **kw) -> tuple:
+    """bf16_err, raising beyond BF16_REL."""
+    err = bf16_err(FA, got, want, q, k, v, **kw)
+    if not (err[0] <= 1.0 and err[1] <= BF16_REL[2]):
+        raise AssertionError(f"beyond {BF16_REL[0]} * A + {BF16_REL[1]} * "
+                             f"|want| ({err[0]:.3f} of it) or normwise "
+                             f"{BF16_REL[2]} ({err[1]:.3e})")
+    return err
+
+
+def prefill_with(model, prompts, FA, attend):
+    """The model's prefill with ``attend`` in the flash kernel's place
+    (the model reaches the kernel through the module)."""
+    real = FA.flash_attention
+    FA.flash_attention = attend
+    try:
+        return model.prefill_step(prompts)[0]
+    finally:
+        FA.flash_attention = real
+
+
+def check_flash(torch, args, flush, FA, launches) -> dict:
+    """The flash kernel against its plain version at FLASH_CASES, timed at
+    the prefill's shape with the plain version and SDPA beside it."""
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    errs = []
+    for i, (shape, dt, causal, cap, atol, rtol) in enumerate(FLASH_CASES):
+        q, k, v = (torch.randn(shape, generator=gen, device=DEV).to(
+            getattr(torch, dt)) for _ in range(3))
+        got = FA.flash_attention(q, k, v, causal=causal, softcap=cap)
+        want = FA.flash_attention_plain(q, k, v, causal=causal, softcap=cap)
+        torch.cuda.synchronize()
+        rel = ""
+        try:
+            errs.append(close_enough(torch, got, want, atol, rtol))
+            if dt == "bfloat16":
+                ratio, norm, ulps = bf16_rel(FA, got, want, q, k, v,
+                                             causal=causal, softcap=cap)
+                rel = (f"; {ratio:.3f} of the elementwise limit, normwise "
+                       f"{norm:.3e}, {ulps:.3f} of two ulps of the value")
+        except AssertionError as exc:
+            raise AssertionError(f"flash_attention {shape} {dt}: {exc}") \
+                from None
+        log(f"[flash] {shape} {dt} causal={causal} softcap={cap}: max abs "
+            f"err {errs[-1]:.3e} (atol {atol}, rtol {rtol}){rel}")
+        if i == 0:
+            prefill_qkv = (q, k, v)
+        del got, want
+    q, k, v = prefill_qkv
+    BH, S, dh = q.shape
+    # the causal half of 4 * S^2 * dh * BH, on the bf16 tensor cores
+    b_ms, b_by = bound(nbytes(q, k, v, q), 2 * S * S * dh * BH,
+                       TENSOR_BF16_OPS_PER_S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:65",
+               launches=launches, max_abs_err=errs[0],
+               ms=median_ms(torch, lambda: FA.flash_attention(q, k, v),
+                            args.reps, flush),
+               plain_ms=median_ms(torch, lambda: FA.flash_attention_plain(
+                   q, k, v), 5, flush),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=median_ms(torch, lambda: sdpa(
+                   q[None], k[None], v[None], is_causal=True), args.reps,
+                   flush),
+               shape=dict(BH=BH, S=S, dh=dh, dtype="bfloat16", causal=True))
+    log(f"[kernel] flash_attention: {rec['ms']:.4f} ms (plain "
+        f"{rec['plain_ms']:.4f}, bound {b_ms:.4f} by {b_by}, SDPA "
+        f"{rec['library_ms']:.4f}) max abs err {errs[0]:.3e}, {launches} "
+        f"launches in the prefill | {rec['shape']}")
+    return rec
+
+
+def lm_phase(torch, args, counts, FA) -> dict:
+    """starcoder2-7b served on the cuda backend: prefill, decode, the
+    torch backend's prefill on the same weights, then the kernel check."""
+    from repro_torch.launch import serve
+    clock = lambda: Timer(torch)
+    ns = serve.parser().parse_args(
+        ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
+         str(LM_PROMPT), "--gen", str(LM_GEN), "--seed", "0"])
+    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
+    torch.cuda.reset_peak_memory_stats()
+    with clock() as t_init:
+        model, prompts = serve.build(ns)
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv} kv, dh {cfg.dh}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab} | {n_params:,} parameters "
+        f"({cfg.param_count():,} by param_count + {norms:,} norm scales), "
+        f"{n_bytes / 1e9:.3f} GB {model.dtype} | init {t_init.s:.2f} s")
+    if n_params != cfg.param_count() + norms or model.backend != "cuda":
+        raise AssertionError("the model is not the full starcoder2-7b on "
+                             "the cuda backend")
+
+    counts.reset()
+    with clock() as t_cold:
+        logits, caches = serve.prefill(model, prompts, P + G)
+    pre = counts.read()
+    if pre["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"flash_attention launched "
+                             f"{pre['flash_attention']} times in a prefill "
+                             f"of {cfg.n_layers} layers")
+    require(pre, silent=[k for k in pre if k != "flash_attention"])
+    counts.reset()
+    with clock() as t_dec:
+        toks = serve.decode(model, logits, caches, P, G)
+    dec = counts.read()
+    require(dec, silent=list(dec))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if toks.shape != (B, G) or not bool(((toks >= 0) & (toks < cfg.vocab))
+                                        .all()):
+        raise AssertionError(f"decoded tokens out of range: {toks}")
+    del caches
+    with clock() as t_warm:
+        again, caches = serve.prefill(model, prompts, P + G)
+    del caches
+    log(f"[lm] prefill B={B} P={P}: cold {t_cold.s:.3f} s, warm "
+        f"{t_warm.s:.3f} s ({B * P / t_warm.s:.0f} tok/s) | decode {G - 1} "
+        f"steps {t_dec.s:.3f} s ({t_dec.s / (G - 1) * 1e3:.2f} ms/step, "
+        f"{B * (G - 1) / t_dec.s:.1f} tok/s) | peak {peak:.2f} GiB | "
+        f"launches: prefill { {k: v for k, v in pre.items() if v} }, "
+        f"decode { {k: v for k, v in dec.items() if v} } | warm vs cold "
+        f"logits max |d| {float((again - logits).abs().max()):.3e}")
+
+    if args.profile:
+        logits_p, caches = profile_window(
+            torch, "lm prefill (warm)",
+            lambda: serve.prefill(model, prompts, P + G))
+        profile_window(torch, f"lm decode ({G - 1} steps)",
+                       lambda: serve.decode(model, logits_p, caches, P, G))
+        del logits_p, caches
+
+    model.backend = "torch"
+    counts.reset()
+    with clock() as t_ref:
+        ref, caches = model.prefill_step(prompts)
+    model.backend = "cuda"
+    require(counts.read(), silent=["flash_attention"])
+    del caches
+    d = (logits - ref).abs()
+    max_d, std = float(d.max()), float(ref.std())
+    top1 = int((logits.argmax(-1) == ref.argmax(-1)).sum())
+    log(f"[lm] cuda vs torch prefill logits: max |d| {max_d:.4f}, mean |d| "
+        f"{float(d.mean()):.4f} (logit std {std:.4f}, max "
+        f"{float(ref.abs().max()):.4f}; limit {LM_LOGIT_TOL} std = "
+        f"{LM_LOGIT_TOL * std:.4f}) | top-1 agrees on {top1} of {B} rows | "
+        f"torch backend prefill {t_ref.s:.3f} s | first tokens "
+        f"{toks[:, :8].tolist()}")
+    if not max_d <= LM_LOGIT_TOL * std:
+        raise AssertionError(f"cuda and torch prefill logits differ by "
+                             f"{max_d} > {LM_LOGIT_TOL} * std {std}")
+
+    # the kernel's contract on the main path's own inputs: each layer's
+    # launch against the plain version on the same q, k, v; beside it the
+    # plain version over 64-key blocks (the kernel's tiling) against the
+    # same, for scale
+    layer_err, layer_ref = [], []
+
+    def checked(q, k, v, **kw):
+        o = real(q, k, v, **kw)
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        layer_err.append(bf16_rel(FA, o, want, q, k, v, **kw))
+        layer_ref.append(bf16_err(FA, FA.flash_attention_plain(
+            q, k, v, bk=64, **kw), want, q, k, v, **kw))
+        return o
+
+    real = FA.flash_attention
+    prefill_with(model, prompts, FA, checked)
+    if len(layer_err) != cfg.n_layers:
+        raise AssertionError(f"{len(layer_err)} layer checks for "
+                             f"{cfg.n_layers} layers")
+    span = lambda errs: (f"at most {max(e[0] for e in errs):.3f} of the "
+                         f"elementwise limit and {max(e[2] for e in errs):.3f}"
+                         f" of two ulps of the value, normwise "
+                         f"{min(e[1] for e in errs):.3e}-"
+                         f"{max(e[1] for e in errs):.3e}")
+    log(f"[lm] flash_attention vs its plain version on each layer's own "
+        f"q, k, v: {span(layer_err)} | plain over 64-key blocks vs the "
+        f"same: {span(layer_ref)} (limits {BF16_REL})")
+
+    # end to end: the same weights and prompts with the plain version in
+    # the kernel's place, and, for scale, with the plain version over KV
+    # blocks of 256 keys in place of 512 (the same function, its sums in
+    # another order)
+    counts.reset()
+    plain = prefill_with(model, prompts, FA, FA.flash_attention_plain)
+    plain256 = prefill_with(model, prompts, FA, functools.partial(
+        FA.flash_attention_plain, bk=256))
+    require(counts.read(), silent=["flash_attention"])
+    d, d0 = (logits - plain).abs(), (plain256 - plain).abs()
+    std_p = float(plain.std())
+    mean_p, mean_0 = float(d.mean()), float(d0.mean())
+    top1_p = int((logits.argmax(-1) == plain.argmax(-1)).sum())
+    log(f"[lm] prefill logits, cuda vs plain attention: max |d| "
+        f"{float(d.max()):.4f} = {float(d.max()) / std_p:.4f} std, mean "
+        f"|d| {mean_p:.5f}, top-1 {top1_p} of {B} | plain vs plain over "
+        f"256-key blocks: max |d| {float(d0.max()):.4f}, mean |d| "
+        f"{mean_0:.5f} (limits: max {LM_LOGIT_TOL} std, mean "
+        f"{LM_PLAIN_MEAN} x the reordered run's)")
+    if not (float(d.max()) <= LM_LOGIT_TOL * std_p
+            and mean_p <= LM_PLAIN_MEAN * mean_0):
+        raise AssertionError(f"cuda and plain-attention prefill logits "
+                             f"differ by max {float(d.max())}, mean "
+                             f"{mean_p} (reordered plain run: {mean_0})")
+    del model, logits, ref, plain, plain256, again, d, d0, prompts
+    torch.cuda.empty_cache()
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
+    return check_flash(torch, args, flush, FA, pre["flash_attention"])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--profile", action="store_true",
-                    help="rerun the cuda paths under torch.profiler and "
-                         "print where the device time goes")
+                    help="rerun the cuda paths and the LM prefill and "
+                         "decode under torch.profiler and print where the "
+                         "device time goes")
     args = ap.parse_args(argv)
 
     import torch
@@ -335,6 +646,7 @@ def main(argv=None) -> int:
     from repro_torch.graph.csr import INF_W
     from repro_torch.kernels import _build
     from repro_torch.kernels import csr_relax as CK
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import repair as FK
     from repro_torch.kernels import segment as SK
@@ -356,7 +668,10 @@ def main(argv=None) -> int:
                 log(f"[ptxas] {src}: {line.strip()}")
     mark("build")
     clock = lambda: Timer(torch)
-    counts = Launches(FK, CK, SK)
+    counts = Launches(FK, CK, SK, FA)
+    # a float32 reference states its matmul precision: full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     FUSED = ("fused_relax_rows", "fused_spmv_rows", "merge_pool_sorted")
     CHAINED = ("relax_rowmin", "spmv_rowsum", "relax_rowargmin")
     sssp_static, sssp_step = (sssp.static_sssp, 0), sssp.stream_step
@@ -638,8 +953,14 @@ def main(argv=None) -> int:
     np.testing.assert_allclose(got[top], ref[top], rtol=5e-2, atol=0,
                                err_msg="PageRank's top 1,000 vertices")
     mark("scipy PageRank")
-    log(f"[check] PageRank's top 1,000 vertices within rtol 5e-2; whole "
-        f"smoke {stamps[-1][1] - stamps[0][1]:.1f} s")
+    log("[check] PageRank's top 1,000 vertices within rtol 5e-2")
+
+    # -- 5. LM serving -------------------------------------------------------
+    del csr, stream, post, sssp_cuda, pr_cuda, g
+    torch.cuda.empty_cache()
+    kernels.append(lm_phase(torch, args, counts, FA))
+    mark("lm serving")
+    log(f"[check] whole smoke {stamps[-1][1] - stamps[0][1]:.1f} s")
     log("[time] " + " | ".join(f"{b[0]} {b[1] - a[1]:.1f} s"
                                for a, b in zip(stamps, stamps[1:])))
 

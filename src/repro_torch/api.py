@@ -143,6 +143,7 @@ class GraphSession:
                                      dead_letter=dead_letter,
                                      health=self._health)
         self._health.dead_letter = self._guard.buffer
+        engine.raw_ids = self._guard.policy == "off"
 
     # -- resident state ------------------------------------------------------
     @property

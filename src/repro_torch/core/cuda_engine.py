@@ -37,7 +37,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import repair as FK
 from repro_torch.kernels.ell import (Ell, ell_apply_add, ell_apply_del,
                                      ell_from_state, ell_state, pack_ell)
-from repro_torch.tensors import segment_max
+from repro_torch.tensors import in_range, segment_max
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,7 +188,7 @@ class CudaEngine(TorchEngine):
                 # the reference's segment_max: a vertex without rows gets
                 # the int32 minimum, which is True as a bool
                 hit[target] = segment_max((ell.row2dst < n).to(INT),
-                                          ell.row2dst.clamp(max=n),
+                                          in_range(ell.row2dst, n),
                                           n + 1)[:n].to(torch.bool)
         for target, red in sw.reduces.items():
             if red.kind != "argmin":

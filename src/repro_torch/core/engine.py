@@ -24,8 +24,9 @@ from repro_torch.graph import diffcsr
 from repro_torch.graph.csr import CSR, INT, build_csr
 from repro_torch.graph.diffcsr import BOOL, DynGraph
 from repro_torch.graph.updates import UpdateBatch
-from repro_torch.tensors import (resolve_device, segment_max, segment_min,
-                                 set_drop, to_device)
+from repro_torch.tensors import (clamp_index, in_range, resolve_device,
+                                 segment_max, segment_min, set_drop,
+                                 to_device)
 
 Props = Dict[str, torch.Tensor]
 
@@ -60,6 +61,10 @@ class Engine:
     """Backend-neutral interface (the 'generated program' surface)."""
 
     name = "base"
+    # True when the session admits batches unchecked (admission="off"):
+    # ids outside [0, n) may then sit in the pool, and sweeps treat them
+    # as JAX does (gathers clamp them, reductions drop them)
+    raw_ids = False
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -292,8 +297,13 @@ class TorchEngine(Engine):
     def _run_sweep(self, g: DynGraph, sw: EdgeSweep, props: Props) -> Props:
         esrc, edst, ew, ealive = g.edge_arrays()
         n = self.n_pad
-        s = _View(props, esrc)
-        d = _View(props, edst)
+        if self.raw_ids:
+            gsrc, gdst = clamp_index(esrc, n), clamp_index(edst, n)
+            seg, num = in_range(edst, n), n + 1
+        else:
+            gsrc, gdst, seg, num = esrc, edst, edst, n
+        s = _View(props, gsrc)
+        d = _View(props, gdst)
         out = sw.edge_fn(s, d, ew)
         reduced, hit = {}, {}
         # value reductions first, arg-reductions second (two-pass argmin)
@@ -303,15 +313,15 @@ class TorchEngine(Engine):
             val, elig = out[target]
             elig = elig & ealive
             v = torch.where(elig, val, red.identity(val.dtype))
-            reduced[target] = red.segment(v, edst, n)
-            hit[target] = segment_max(elig.to(INT), edst, n) > 0
+            reduced[target] = red.segment(v, seg, num)[:n]
+            hit[target] = segment_max(elig.to(INT), seg, num)[:n] > 0
         for target, red in sw.reduces.items():
             if red.kind != "argmin":
                 continue
             val, elig = out[red.of]
-            achieved = elig & ealive & (val == reduced[red.of][edst])
+            achieved = elig & ealive & (val == reduced[red.of][gdst])
             reduced[target] = segment_min(torch.where(achieved, esrc, n),
-                                          edst, n)
+                                          seg, num)[:n]
             hit[target] = hit[red.of]
         return sw.post_fn(props, reduced, hit)
 

@@ -12,7 +12,8 @@
 //   relax_rowargmin  out[r] = min_k {src : vals[src]+w == row_targets[r]},
 //                    n where no slot reaches the target
 // vals is (n+1,) with the reduction identity at slot n, so empty slots
-// (src == n) gather the identity.
+// (src == n) gather the identity; L is its length, and a source id outside
+// [0, L) is gathered as a JAX gather takes it (ell_row.cuh: gather).
 //
 // Bound: device-memory bytes.  A row streams K·4 bytes of sources (and
 // K·4 of weights for the two relax kernels), reads 4 bytes of target
@@ -33,31 +34,34 @@ template <bool VEC8>
 __global__ void relax_rowmin_kernel(const int* __restrict__ ell_src,
                                     const int* __restrict__ ell_w,
                                     const int* __restrict__ vals,
-                                    int* __restrict__ out, int R, int K) {
+                                    int* __restrict__ out, int R, int K,
+                                    int L) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   const int kk = VEC8 ? 8 : K;
   int s[32], w[32];
   load_row<VEC8>(ell_src, r, kk, s);
   load_row<VEC8>(ell_w, r, kk, w);
-  int m = wrap_add(__ldg(vals + s[0]), w[0]);
+  int m = wrap_add(gather(vals, s[0], L), w[0]);
 #pragma unroll 8
-  for (int k = 1; k < kk; ++k) m = min(m, wrap_add(__ldg(vals + s[k]), w[k]));
+  for (int k = 1; k < kk; ++k)
+    m = min(m, wrap_add(gather(vals, s[k], L), w[k]));
   out[r] = m;
 }
 
 template <bool VEC8>
 __global__ void spmv_rowsum_kernel(const int* __restrict__ ell_src,
                                    const float* __restrict__ vals,
-                                   float* __restrict__ out, int R, int K) {
+                                   float* __restrict__ out, int R, int K,
+                                   int L) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   const int kk = VEC8 ? 8 : K;
   int s[32];
   load_row<VEC8>(ell_src, r, kk, s);
-  float acc = __ldg(vals + s[0]);
+  float acc = gather(vals, s[0], L);
 #pragma unroll 8
-  for (int k = 1; k < kk; ++k) acc = __fadd_rn(acc, __ldg(vals + s[k]));
+  for (int k = 1; k < kk; ++k) acc = __fadd_rn(acc, gather(vals, s[k], L));
   out[r] = acc;
 }
 
@@ -67,7 +71,7 @@ __global__ void relax_rowargmin_kernel(const int* __restrict__ ell_src,
                                        const int* __restrict__ vals,
                                        const int* __restrict__ row_targets,
                                        int* __restrict__ out, int R, int K,
-                                       int n) {
+                                       int n, int L) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
   const int kk = VEC8 ? 8 : K;
@@ -75,12 +79,15 @@ __global__ void relax_rowargmin_kernel(const int* __restrict__ ell_src,
   load_row<VEC8>(ell_src, r, kk, s);
   load_row<VEC8>(ell_w, r, kk, w);
   const int t = __ldg(row_targets + r);
-  int a = n;
+  // min(where(cand == t, src, n)): n joins only when some slot misses
+  int a = 0x7fffffff;
+  bool miss = false;
 #pragma unroll 8
   for (int k = 0; k < kk; ++k) {
-    if (wrap_add(__ldg(vals + s[k]), w[k]) == t) a = min(a, s[k]);
+    if (wrap_add(gather(vals, s[k], L), w[k]) == t) a = min(a, s[k]);
+    else miss = true;
   }
-  out[r] = a;
+  out[r] = miss ? min(a, n) : a;
 }
 
 constexpr int kBlock = 256;
@@ -95,7 +102,7 @@ bool vec8(int K, const void* a, const void* b) {
 // registers.
 extern "C" int repro_relax_rowmin(const void* ell_src, const void* ell_w,
                                   const void* vals, void* out, int R, int K,
-                                  void* stream) {
+                                  int L, void* stream) {
   if (K < 1 || K > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = (R + kBlock - 1) / kBlock;
@@ -103,28 +110,29 @@ extern "C" int repro_relax_rowmin(const void* ell_src, const void* ell_w,
     if (vec8(K, ell_src, ell_w)) {
       relax_rowmin_kernel<true><<<grid, kBlock, 0, st>>>(
           (const int*)ell_src, (const int*)ell_w, (const int*)vals,
-          (int*)out, R, K);
+          (int*)out, R, K, L);
     } else {
       relax_rowmin_kernel<false><<<grid, kBlock, 0, st>>>(
           (const int*)ell_src, (const int*)ell_w, (const int*)vals,
-          (int*)out, R, K);
+          (int*)out, R, K, L);
     }
   }
   return (int)cudaGetLastError();
 }
 
 extern "C" int repro_spmv_rowsum(const void* ell_src, const void* vals,
-                                 void* out, int R, int K, void* stream) {
+                                 void* out, int R, int K, int L,
+                                 void* stream) {
   if (K < 1 || K > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = (R + kBlock - 1) / kBlock;
   if (grid > 0) {
     if (vec8(K, ell_src, ell_src)) {
       spmv_rowsum_kernel<true><<<grid, kBlock, 0, st>>>(
-          (const int*)ell_src, (const float*)vals, (float*)out, R, K);
+          (const int*)ell_src, (const float*)vals, (float*)out, R, K, L);
     } else {
       spmv_rowsum_kernel<false><<<grid, kBlock, 0, st>>>(
-          (const int*)ell_src, (const float*)vals, (float*)out, R, K);
+          (const int*)ell_src, (const float*)vals, (float*)out, R, K, L);
     }
   }
   return (int)cudaGetLastError();
@@ -133,7 +141,8 @@ extern "C" int repro_spmv_rowsum(const void* ell_src, const void* vals,
 extern "C" int repro_relax_rowargmin(const void* ell_src, const void* ell_w,
                                      const void* vals,
                                      const void* row_targets, void* out,
-                                     int R, int K, int n, void* stream) {
+                                     int R, int K, int n, int L,
+                                     void* stream) {
   if (K < 1 || K > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = (R + kBlock - 1) / kBlock;
@@ -141,11 +150,11 @@ extern "C" int repro_relax_rowargmin(const void* ell_src, const void* ell_w,
     if (vec8(K, ell_src, ell_w)) {
       relax_rowargmin_kernel<true><<<grid, kBlock, 0, st>>>(
           (const int*)ell_src, (const int*)ell_w, (const int*)vals,
-          (const int*)row_targets, (int*)out, R, K, n);
+          (const int*)row_targets, (int*)out, R, K, n, L);
     } else {
       relax_rowargmin_kernel<false><<<grid, kBlock, 0, st>>>(
           (const int*)ell_src, (const int*)ell_w, (const int*)vals,
-          (const int*)row_targets, (int*)out, R, K, n);
+          (const int*)row_targets, (int*)out, R, K, n, L);
     }
   }
   return (int)cudaGetLastError();

@@ -54,15 +54,23 @@
 
 namespace {
 
+// One slot of a row's relax: the row min so far, the least source reaching
+// it, and how many slots reach it.  A row where some slot misses the min
+// also offers the sentinel n to the argmin, as the reference's
+// min(where(cand == rmin, src, n)) does (it matters only for a source id
+// past n, which an unchecked graph can hold).
 __device__ __forceinline__ void relax_slot(int s, int w,
                                            const int* __restrict__ vals,
-                                           int& rmin, int& rarg) {
-  const int c = wrap_add(__ldg(vals + s), w);
+                                           int L, int& rmin, int& rarg,
+                                           int& reach) {
+  const int c = wrap_add(gather(vals, s, L), w);
   if (c < rmin) {
     rmin = c;
     rarg = s;
-  } else if (c == rmin && s < rarg) {
-    rarg = s;
+    reach = 1;
+  } else if (c == rmin) {
+    rarg = min(rarg, s);
+    ++reach;
   }
 }
 
@@ -115,23 +123,25 @@ __global__ void fused_relax_rows_kernel(const int* __restrict__ ell_src,
   const long long r = base + threadIdx.x;
   bool hit = false;
   if (r < R) {
-    int rmin, rarg;
+    int rmin, rarg, reach = 1;
     if (VEC8) {
       int s[8], w[8];
       load_row<true>(ell_src, r, 8, s);
       load_row<true>(ell_w, r, 8, w);
-      rmin = wrap_add(__ldg(vals + s[0]), w[0]);
+      rmin = wrap_add(gather(vals, s[0], n + 1), w[0]);
       rarg = s[0];
 #pragma unroll
-      for (int k = 1; k < 8; ++k) relax_slot(s[k], w[k], vals, rmin, rarg);
+      for (int k = 1; k < 8; ++k)
+        relax_slot(s[k], w[k], vals, n + 1, rmin, rarg, reach);
     } else {
       const int* s = ell_src + r * K;
       const int* w = ell_w + r * K;
       rarg = __ldg(s);
-      rmin = wrap_add(__ldg(vals + rarg), __ldg(w));
+      rmin = wrap_add(gather(vals, rarg, n + 1), __ldg(w));
       for (int k = 1; k < K; ++k) relax_slot(__ldg(s + k), __ldg(w + k),
-                                             vals, rmin, rarg);
+                                             vals, n + 1, rmin, rarg, reach);
     }
+    if (reach < (VEC8 ? 8 : K)) rarg = min(rarg, n);
     row_min[r] = rmin;
     row_arg[r] = rarg;
     hit = rmin < __ldg(vals + n);
@@ -158,13 +168,15 @@ __global__ void fused_spmv_rows_kernel(const int* __restrict__ ell_src,
     if (VEC8) {
       int s[8];
       load_row<true>(ell_src, r, 8, s);
-      acc = __ldg(vals + s[0]);
+      acc = gather(vals, s[0], n + 1);
 #pragma unroll
-      for (int k = 1; k < 8; ++k) acc = __fadd_rn(acc, __ldg(vals + s[k]));
+      for (int k = 1; k < 8; ++k)
+        acc = __fadd_rn(acc, gather(vals, s[k], n + 1));
     } else {
       const int* s = ell_src + r * K;
-      acc = __ldg(vals + __ldg(s));
-      for (int k = 1; k < K; ++k) acc = __fadd_rn(acc, __ldg(vals + __ldg(s + k)));
+      acc = gather(vals, __ldg(s), n + 1);
+      for (int k = 1; k < K; ++k)
+        acc = __fadd_rn(acc, gather(vals, __ldg(s + k), n + 1));
     }
     row_sum[r] = acc;
     hit = __ldg(row2dst + r) < n;

@@ -23,7 +23,8 @@ import numpy as np
 import torch
 
 from repro_torch.graph.csr import CSR, INF_W, INT, build_csr, row_searchsorted
-from repro_torch.tensors import cumsum32, segment_sum, set_drop, take
+from repro_torch.tensors import (cumsum32, in_range, segment_sum, set_drop,
+                                 take)
 
 BOOL = torch.bool
 
@@ -69,8 +70,10 @@ class DynGraph:
         return esrc, edst, ew, ealive
 
     def out_degrees(self) -> torch.Tensor:
+        # a negative source (an unchecked, admission="off" pool) is dropped
         esrc, _, _, ealive = self.edge_arrays()
-        return segment_sum(ealive.to(INT), esrc, self.n)
+        return segment_sum(ealive.to(INT), in_range(esrc, self.n),
+                           self.n + 1)[:self.n]
 
 
 def from_csr(csr: CSR, diff_capacity: int) -> DynGraph:

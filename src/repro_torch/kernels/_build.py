@@ -49,7 +49,7 @@ _LIB = None
 # source file; ``seconds`` is the wall time of the whole parallel build
 BUILD_INFO = {"seconds": None, "logs": {}, "paths": {}}
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # repair.cu — ell_src, ell_w, vals, row_min, row_arg, rows, counts,
     # R, K, n, block, stream
@@ -59,14 +59,17 @@ _SIGNATURES = {
     # pool src/dst/w/alive, fresh src/dst/w/alive, out src/dst/w/alive,
     # D, B, n, iters, stream
     "repro_merge_pool_sorted": [P] * 12 + [I] * 4 + [P],
-    # csr_relax.cu — ell_src, ell_w, vals, out, R, K, stream
-    "repro_relax_rowmin": [P] * 4 + [I] * 2 + [P],
-    # ell_src, vals, out, R, K, stream
-    "repro_spmv_rowsum": [P] * 3 + [I] * 2 + [P],
-    # ell_src, ell_w, vals, row_targets, out, R, K, n, stream
-    "repro_relax_rowargmin": [P] * 5 + [I] * 3 + [P],
+    # csr_relax.cu — ell_src, ell_w, vals, out, R, K, L (len(vals)), stream
+    "repro_relax_rowmin": [P] * 4 + [I] * 3 + [P],
+    # ell_src, vals, out, R, K, L, stream
+    "repro_spmv_rowsum": [P] * 3 + [I] * 3 + [P],
+    # ell_src, ell_w, vals, row_targets, out, R, K, n, L, stream
+    "repro_relax_rowargmin": [P] * 5 + [I] * 4 + [P],
     # segment.cu — vals, order (or null), offsets, out, num, stream
     "repro_segment_sum_sorted": [P] * 4 + [I] + [P],
+    # flash_attention.cu — q, k, v, o, BH, S, dh, is_bf16, causal, scale,
+    # softcap, stream
+    "repro_flash_attention": [P] * 4 + [I] * 5 + [F] * 2 + [P],
 }
 
 

@@ -7,7 +7,8 @@
                       sentinel n  (deterministic parent for SSSP)
 
 ``vals`` is (n+1,) with the reduction identity at slot n, so empty slots
-(src == n) gather the identity.  Integer adds wrap as int32 does; the K
+(src == n) gather the identity; a source id outside [0, n] is gathered
+as a JAX gather takes it (``tensors.take``).  Integer adds wrap as int32 does; the K
 float lanes of ``spmv_rowsum`` are added left to right.
 
 A wrapper takes the plain version only for tensors on the CPU.  For a
@@ -25,6 +26,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import check, cuda_device, ptr, raise_on
 from repro_torch.kernels._build import stream as _stream
 from repro_torch.kernels.repair import row_sum_plain
+from repro_torch.tensors import take
 
 LAUNCHES = {"relax_rowmin": 0, "spmv_rowsum": 0, "relax_rowargmin": 0}
 
@@ -42,7 +44,7 @@ def _shape(name: str, ell_src):
 
 
 def _cand(ell_src, ell_w, vals):
-    return vals[ell_src.to(torch.int64)] + ell_w
+    return take(vals, ell_src) + ell_w
 
 
 def relax_rowmin_plain(ell_src, ell_w, vals):
@@ -70,7 +72,8 @@ def relax_rowmin(ell_src, ell_w, vals):
     R, K = _shape("relax_rowmin", ell_src)
     out = torch.empty((R,), dtype=INT, device=dev)
     err = _build.load().repro_relax_rowmin(
-        ptr(ell_src), ptr(ell_w), ptr(vals), ptr(out), R, K, _stream(dev))
+        ptr(ell_src), ptr(ell_w), ptr(vals), ptr(out), R, K, vals.shape[0],
+        _stream(dev))
     raise_on(err, "relax_rowmin")
     LAUNCHES["relax_rowmin"] += 1
     return out
@@ -86,7 +89,7 @@ def spmv_rowsum(ell_src, vals):
     R, K = _shape("spmv_rowsum", ell_src)
     out = torch.empty((R,), dtype=torch.float32, device=dev)
     err = _build.load().repro_spmv_rowsum(
-        ptr(ell_src), ptr(vals), ptr(out), R, K, _stream(dev))
+        ptr(ell_src), ptr(vals), ptr(out), R, K, vals.shape[0], _stream(dev))
     raise_on(err, "spmv_rowsum")
     LAUNCHES["spmv_rowsum"] += 1
     return out
@@ -107,7 +110,7 @@ def relax_rowargmin(ell_src, ell_w, vals, row_targets, *, n: int):
     out = torch.empty((R,), dtype=INT, device=dev)
     err = _build.load().repro_relax_rowargmin(
         ptr(ell_src), ptr(ell_w), ptr(vals), ptr(row_targets), ptr(out), R,
-        K, n, _stream(dev))
+        K, n, vals.shape[0], _stream(dev))
     raise_on(err, "relax_rowargmin")
     LAUNCHES["relax_rowargmin"] += 1
     return out

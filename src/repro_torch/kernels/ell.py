@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.graph.csr import INT
 from repro_torch.graph.diffcsr import DynGraph, update_lanes
-from repro_torch.tensors import cumsum32, set_drop, to_device
+from repro_torch.tensors import (clamp_index, cumsum32, in_range, set_drop,
+                                 to_device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,11 +104,13 @@ def _pack(n, eother, egroup, ew, emat, ealive, k, row_tile) -> Ell:
     start = torch.searchsorted(sdst, sdst, side="left", out_int32=True)
     rank = torch.arange(E, dtype=INT, device=dev) - start
     # row base per vertex: exclusive cumsum of ceil(indeg/K)
-    indeg = torch.bincount(sdst, minlength=n + 1).to(INT)
+    # ids outside [0, n] are dropped, as by the reference's segment_sum
+    indeg = torch.bincount(in_range(sdst, n + 1),
+                           minlength=n + 2)[:n + 1].to(INT)
     segs = -(-indeg // k)
     base = torch.cat([torch.zeros((1,), dtype=INT, device=dev),
                       cumsum32(segs[:n])])
-    row = base[sdst.clamp(max=n)] + rank // k
+    row = base[clamp_index(sdst.clamp(max=n), n + 1)] + rank // k
     col = rank % k
     valid = sdst < n
     flat = torch.where(valid, row * k + col, R * k)

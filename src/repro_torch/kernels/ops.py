@@ -2,7 +2,9 @@
 ``repro.kernels.ops``): the chained ops over ``kernels/csr_relax.py``
 and the fused ones over ``kernels/repair.py``.  Rows combine into
 vertices by segment reductions over ``row2dst``; rows are grouped by
-vertex, so a float sum adds a vertex's rows in row order."""
+vertex, so a float sum adds a vertex's rows in row order.  A row of a
+negative destination (only an unchecked, admission="off" graph has one)
+is dropped, as ``jax.ops.segment_*`` drops it."""
 from __future__ import annotations
 
 import torch
@@ -12,7 +14,7 @@ from repro_torch.kernels import csr_relax as K
 from repro_torch.kernels import repair as FK
 from repro_torch.kernels.ell import Ell
 from repro_torch.kernels.segment import segment_sum_sorted
-from repro_torch.tensors import segment_min, set_drop
+from repro_torch.tensors import in_range, segment_min, set_drop
 
 
 def _combine_rows(row_vals, ell: Ell, kind: str) -> torch.Tensor:
@@ -21,7 +23,8 @@ def _combine_rows(row_vals, ell: Ell, kind: str) -> torch.Tensor:
     vertex's rows ``[offsets[v], offsets[v+1])`` in row order."""
     if kind == "sum":
         return segment_sum_sorted(row_vals, None, ell.offsets)
-    return segment_min(row_vals, ell.row2dst, ell.n + 1)[:ell.n]
+    return segment_min(row_vals, in_range(ell.row2dst, ell.n),
+                       ell.n + 1)[:ell.n]
 
 
 def vertex_min_plus(ell: Ell, vals_n1: torch.Tensor) -> torch.Tensor:
@@ -40,7 +43,7 @@ def vertex_argmin_src(ell: Ell, vals_n1: torch.Tensor,
     """Smallest source achieving vertex_min[v] (deterministic parent)."""
     n = ell.n
     tgt_full = torch.cat([vertex_min, vertex_min.new_full((1,), INF_W)])
-    row_tgt = tgt_full[ell.row2dst.clamp(max=n)]
+    row_tgt = tgt_full[in_range(ell.row2dst, n)]
     rows = K.relax_rowargmin(ell.ell_src, ell.ell_w, vals_n1, row_tgt, n=n)
     return _combine_rows(rows, ell, "min")
 
@@ -70,7 +73,7 @@ def vertex_relax_fused(ell: Ell, vals_n1: torch.Tensor, *, block=None):
     n = ell.n
     row_min, row_arg, front_rows, _ = FK.fused_relax_rows(
         ell.ell_src, ell.ell_w, vals_n1, block=block or FK.ROW_TILE)
-    seg = ell.row2dst.clamp(max=n)
+    seg = in_range(ell.row2dst, n)
     vmin = segment_min(row_min, seg, n + 1)[:n]
     tgt_full = torch.cat([vmin, vmin.new_full((1,), INF_W)])
     contrib = torch.where(row_min == tgt_full[seg], row_arg, n)

@@ -14,6 +14,10 @@ the rows that belong to a vertex (``row2dst < n``) compacted per block.
 merge-path binary search per output slot folds the sorted admitted batch
 into the sorted diff pool; the pool wins ties.
 
+The row kernels gather ``vals`` (n+1,) as a JAX gather does: a source id
+outside [0, n] (only an unchecked, admission="off" pool holds one) counts
+from the end or clamps (``tensors.take``).
+
 A wrapper takes the plain version only for tensors on the CPU.  For a
 CUDA tensor it launches the kernel in ``csrc/repair.cu`` (built on first
 use by ``_build``) or raises.  ``LAUNCHES`` counts kernel launches, and
@@ -35,6 +39,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import check, cuda_device, ptr, raise_on
 from repro_torch.kernels._build import stream as _stream
 from repro_torch.kernels.ell import ell_capacity
+from repro_torch.tensors import take
 
 ROW_TILE = 128          # ELL row rounding; a block size that always divides R
 DEFAULT_BLOCK = 256     # rows per CUDA block of fused_relax_rows
@@ -81,8 +86,7 @@ def fused_relax_rows_plain(ell_src, ell_w, vals, block: int):
     R, _ = ell_src.shape
     n = vals.shape[0] - 1
     bt = _relax_block(R, block)
-    s = ell_src.to(torch.int64)
-    cand = vals[s] + ell_w
+    cand = take(vals, ell_src) + ell_w
     rmin = cand.min(dim=1).values
     rarg = torch.where(cand == rmin[:, None], ell_src, n).min(dim=1).values
     rows, counts = _compact_rows(rmin < vals[n], R, bt)
@@ -122,7 +126,7 @@ def row_sum_plain(ell_src, vals):
     """``sum_k vals[src[r, k]]`` with the K lanes added left to right by
     explicit adds, the order the kernels keep (``sum(dim=1)`` fixes
     none)."""
-    g = vals[ell_src.to(torch.int64)]
+    g = take(vals, ell_src)
     acc = g[:, 0]
     for k in range(1, g.shape[1]):
         acc = acc + g[:, k]

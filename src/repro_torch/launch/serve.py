@@ -1,0 +1,130 @@
+"""Batched greedy decoding (counterpart of ``repro/launch/serve.py``): the
+serving-side end-to-end path of an attention + MLP language model.
+
+PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
+    --reduced --f32 --device cpu
+
+Prefill runs the prompts through ``Model.prefill_step`` (the static full
+recomputation; its attention goes through the flash kernel on the
+``cuda`` backend), then ``--gen`` greedy tokens come from
+``Model.serve_step`` over the cache, one token a step.  Weights and
+prompts come from one ``torch.Generator`` seeded with ``--seed`` on the
+model's device.  ``--graph`` (the reference's multi-tenant graph-session
+pool) waits for ROADMAP Queue 1 item 12.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.archs import REGISTRY, get_arch
+from repro_torch.configs.reduced import reduced
+from repro_torch.models.layers import BACKENDS
+from repro_torch.models.model import Model
+from repro_torch.tensors import resolve_device
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def build(args):
+    """(model with seeded random weights, (B, P) prompts)."""
+    cfg = get_arch(args.arch)
+    if args.reduced:
+        cfg = reduced(cfg)
+    dev = resolve_device(args.device)
+    model = Model(cfg, dtype=torch.float32 if args.f32 else torch.bfloat16,
+                  device=dev, backend=args.backend)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    model.init(gen)
+    prompts = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                            generator=gen, device=dev)
+    return model, prompts
+
+
+def prefill(model: Model, prompts, total: int):
+    """Last-position logits and the cache padded to ``total`` positions."""
+    logits, caches = model.prefill_step(prompts)
+    pad = total - prompts.shape[1]
+    caches = [{n: F.pad(x, (0, 0, 0, pad)) for n, x in c.items()}
+              for c in caches]
+    return logits, caches
+
+
+def decode(model: Model, logits, caches, start: int, gen: int):
+    """``gen`` greedy tokens (B, gen) int64: the first from the prefill's
+    logits, each next one from ``serve_step`` at position start + i."""
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    out = [tok]
+    for i in range(gen - 1):
+        logits, caches = model.serve_step(caches, tok, start + i)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out.append(tok)
+    return torch.cat(out, dim=1)
+
+
+def serve(args) -> dict:
+    if args.graph:
+        raise NotImplementedError(
+            "--graph (the graph-session pool) waits for ROADMAP Queue 1 "
+            "item 12")
+    model, prompts = build(args)
+    dev, cfg = model.device, model.cfg
+    B, P, G = args.batch, args.prompt_len, args.gen
+
+    # ---- prefill (static recomputation over the prompt) -------------------
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, caches = prefill(model, prompts, P + G)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    # ---- incremental decode ------------------------------------------------
+    t0 = time.perf_counter()
+    toks = decode(model, logits, caches, P, G)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+
+    toks = toks.cpu().numpy()
+    tps = B * (G - 1) / max(t_decode, 1e-9)
+    print(f"[serve] arch={cfg.name} B={B} prompt={P} gen={G} "
+          f"backend={model.backend} device={dev}")
+    print(f"[serve] prefill {t_prefill*1e3:.1f} ms "
+          f"({B * P / max(t_prefill, 1e-9):.0f} tok/s)")
+    print(f"[serve] decode  {t_decode*1e3:.1f} ms "
+          f"({tps:.0f} tok/s, {t_decode / max(G - 1, 1) * 1e3:.1f} ms/step)")
+    if not ((toks >= 0) & (toks < cfg.vocab)).all():
+        raise AssertionError("decoded a token outside the vocabulary")
+    return {"tokens": toks, "logits": logits, "prefill_s": t_prefill,
+            "decode_s": t_decode}
+
+
+def parser():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="starcoder2-7b", choices=list(REGISTRY))
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--f32", action="store_true")
+    ap.add_argument("--backend", default="cuda", choices=BACKENDS)
+    ap.add_argument("--device", default=None,
+                    help="default: the card (raises without one); 'cpu' "
+                         "runs the plain versions on the CPU")
+    ap.add_argument("--graph", action="store_true",
+                    help="serve a pool of graph sessions (not ported yet)")
+    return ap
+
+
+def main():
+    serve(parser().parse_args())
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,264 @@
+"""Transformer layers for attention + MLP models (counterpart of
+``repro/models/layers.py``): norms, RoPE, GQA attention (flash for
+prefill, cache attention for decode), the SwiGLU MLP, parameter init.
+
+Conventions as in the reference: activations (B, S, D); attention heads
+(B, S, H, dh); every sublayer is pre-norm residual; a sublayer's weights
+sit in an ``nn.ParameterDict`` under the reference's names.  On one card
+the reference's sharding constraints are the identity, so no ``shard``
+argument is threaded through.
+
+``flash_attention`` takes the backend:
+
+* ``"torch"`` computes the reference's chunked schedule: blocks of
+  ``KV_BLOCK`` keys with a running (max, denominator, accumulator), the
+  accumulator in q's type;
+* ``"cuda"`` hands (B·H, S, dh) to the flash kernel
+  (``kernels/flash_attention.py``), the lowering of the same function
+  (as the Pallas kernel is on the TPU), with a float32 accumulator.  On a
+  CPU tensor the kernel's wrapper runs its plain version.
+
+``cache_attend`` and the projections are plain tensor code; the
+reference computes them outside any kernel too.  Decode writes the new
+token's k and v into the cache in place (the reference's
+``dynamic_update_slice`` makes a new cache each step).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.archs import ArchConfig
+from repro_torch.kernels import flash_attention as FK
+from repro_torch.kernels.flash_attention import scaled
+
+F32 = torch.float32
+KV_BLOCK = 1024
+NEG = -1e30
+BACKENDS = ("cuda", "torch")
+
+
+def rms_norm(x, scale, eps=1e-6):
+    var = torch.mean(torch.square(x.to(F32)), dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * (1.0 + scale)
+
+
+def rope(x, positions, theta):
+    """x: (..., S, H, dh); positions: (..., S)"""
+    dh = x.shape[-1]
+    half = dh // 2
+    # log(theta) in float32, as the reference takes it, on the host
+    log_theta = float(torch.log(torch.tensor(theta, dtype=F32)))
+    freqs = torch.exp(-log_theta * torch.arange(half, dtype=F32,
+                                                device=x.device) / half)
+    ang = positions[..., :, None].to(F32) * freqs          # (..., S, half)
+    cos = torch.cos(ang)[..., :, None, :].to(x.dtype)
+    sin = torch.sin(ang)[..., :, None, :].to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
+
+
+def softcap(logits, cap: Optional[float]):
+    if cap is None:
+        return logits
+    return torch.tanh(logits / cap) * cap
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+def qkv_project(p, x, cfg: ArchConfig):
+    B, S, D = x.shape
+    H, kv, dh = cfg.n_heads, cfg.n_kv, cfg.dh
+    q = (x @ p["wq"]).reshape(B, S, H, dh)
+    k = (x @ p["wk"]).reshape(B, S, kv, dh)
+    v = (x @ p["wv"]).reshape(B, S, kv, dh)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(H, dh)
+        k = k + p["bk"].reshape(kv, dh)
+        v = v + p["bv"].reshape(kv, dh)
+    return q, k, v
+
+
+def _flash_body(q, k, v, mask, cap):
+    """One KV block: q (B,S,H,dh), k/v (B,Kb,H,dh), mask (S,Kb) or None."""
+    logits = torch.einsum("bshd,bthd->bhst", q, k).to(F32)
+    logits = softcap(logits, cap)
+    if mask is not None:
+        logits = torch.where(mask[None, None], logits, NEG)
+    m = torch.amax(logits, dim=-1)                            # (B,H,S)
+    p = torch.exp(logits - m[..., None])
+    l = torch.sum(p, dim=-1)
+    acc = torch.einsum("bhst,bthd->bshd", p.to(v.dtype), v)
+    return m, l, acc
+
+
+def flash_attention(q, k, v, cfg: ArchConfig, positions, causal: bool,
+                    scale: float, backend: str = "cuda"):
+    """Chunked-softmax attention; q,k,v: (B,S,H,dh) (kv already repeated).
+
+    ``positions`` is ``arange(S)`` on every caller; the kernel masks by
+    absolute index, which is the same thing.  The reference's ``window``
+    (local attention) waits for ROADMAP Queue 1 item 14b."""
+    if backend == "cuda":
+        return _flash_kernel(q, k, v, cfg, causal, scale)
+    if backend != "torch":
+        raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
+    B, S, H, dh = q.shape
+    q = scaled(q, scale)
+    Kb = min(KV_BLOCK, S)
+    if S % Kb:               # non-power-of-two source lengths: one block
+        Kb = S
+    qpos = positions                                            # (S,)
+    m = torch.full((B, H, S), NEG, dtype=F32, device=q.device)
+    l = torch.zeros((B, H, S), dtype=F32, device=q.device)
+    acc = torch.zeros((B, S, H, dh), dtype=q.dtype, device=q.device)
+    for k0 in range(0, S, Kb):
+        kpos = k0 + torch.arange(Kb, device=q.device)
+        mask = qpos[:, None] >= kpos[None, :] if causal else None
+        m1, l1, a1 = _flash_body(q, k[:, k0:k0 + Kb], v[:, k0:k0 + Kb],
+                                 mask, cfg.attn_softcap)
+        mn = torch.maximum(m, m1)
+        c0 = torch.exp(m - mn)
+        c1 = torch.exp(m1 - mn)
+        l = l * c0 + l1 * c1
+        acc = acc * c0.transpose(1, 2)[..., None].to(acc.dtype) \
+            + a1 * c1.transpose(1, 2)[..., None].to(a1.dtype)
+        m = mn
+    denom = torch.clamp(l, min=1e-20).transpose(1, 2)[..., None]
+    return (acc / denom.to(acc.dtype)).to(q.dtype)
+
+
+def _flash_kernel(q, k, v, cfg: ArchConfig, causal, scale):
+    B, S, H, dh = q.shape
+    if scale != dh ** -0.5:
+        raise ValueError(f"the flash kernel scales q by dh**-0.5, "
+                         f"got scale={scale}")
+    heads = lambda x: x.transpose(1, 2).reshape(B * H, S, dh).contiguous()
+    o = FK.flash_attention(heads(q), heads(k), heads(v), causal=causal,
+                           softcap=cfg.attn_softcap)
+    return o.reshape(B, H, S, dh).transpose(1, 2)
+
+
+def repeat_kv(k, n_rep):
+    if n_rep == 1:
+        return k
+    B, S, kv, dh = k.shape
+    return k[:, :, :, None].expand(B, S, kv, n_rep, dh) \
+        .reshape(B, S, kv * n_rep, dh)
+
+
+def attention_full(p, x, cfg: ArchConfig, positions, causal=True,
+                   backend="cuda"):
+    """Attention over the whole sequence: (out, k, v), with k and v after
+    RoPE and before ``repeat_kv`` (what prefill puts in the cache)."""
+    B, S, D = x.shape
+    H, kv, dh = cfg.n_heads, cfg.n_kv, cfg.dh
+    q, k, v = qkv_project(p, x, cfg)
+    if causal:  # encoders (bidir) skip rope to mimic abs-pos (stub choice)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    o = flash_attention(q, repeat_kv(k, H // kv), repeat_kv(v, H // kv), cfg,
+                        positions, causal, scale=dh ** -0.5, backend=backend)
+    return o.reshape(B, S, H * dh) @ p["wo"], k, v
+
+
+def attention_train(p, x, cfg: ArchConfig, positions, causal=True,
+                    backend="cuda"):
+    return attention_full(p, x, cfg, positions, causal, backend)[0]
+
+
+def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos: int):
+    """x: (B,1,D); cache_k/v: (B,kv,S,dh), written at ``pos`` in place."""
+    B, _, D = x.shape
+    H, kv, dh = cfg.n_heads, cfg.n_kv, cfg.dh
+    q, k, v = qkv_project(p, x, cfg)
+    posv = torch.full((1,), pos, device=x.device)
+    q = rope(q, posv, cfg.rope_theta)
+    k = rope(k, posv, cfg.rope_theta)
+    cache_k[:, :, pos:pos + 1] = k.to(cache_k.dtype).transpose(1, 2)
+    cache_v[:, :, pos:pos + 1] = v.to(cache_v.dtype).transpose(1, 2)
+    out = cache_attend(q, cache_k, cache_v, cfg, pos)
+    return out.reshape(B, 1, H * dh) @ p["wo"], cache_k, cache_v
+
+
+def cache_attend(q, cache_k, cache_v, cfg: ArchConfig, pos: int):
+    """q: (B,1,H,dh); cache: (B,kv,S,dh) -> (B,1,H,dh); keys past ``pos``
+    masked.  The reference's ``window`` and ``window_slice`` wait with
+    windowed attention (ROADMAP Queue 1 item 14b)."""
+    B, _, H, dh = q.shape
+    kv = cache_k.shape[1]
+    rep = H // kv
+    qh = scaled(q.reshape(B, kv, rep, dh), dh ** -0.5)
+    S = cache_k.shape[2]
+    logits = torch.einsum("bkrd,bksd->bkrs", qh, cache_k).to(F32)
+    logits = softcap(logits, cfg.attn_softcap)
+    ok = torch.arange(S, device=q.device) <= pos
+    logits = torch.where(ok[None, None, None], logits, NEG)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkrs,bksd->bkrd", p.to(cache_v.dtype), cache_v)
+    return out.reshape(B, 1, H, dh)
+
+
+# ---------------------------------------------------------------------------
+# FFN
+# ---------------------------------------------------------------------------
+
+def mlp(p, x):
+    g = x @ p["w_gate"]
+    h = g * torch.sigmoid(g) * (x @ p["w_up"])
+    return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Parameter init
+# ---------------------------------------------------------------------------
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)   # serving only
+
+
+def _init(shape, generator, device, scale=None, dtype=torch.bfloat16):
+    """Normal weights times ``scale`` (default fan-in**-0.5), drawn in
+    float32 from ``generator`` and cast; with no generator the tensor is
+    left uninitialised, for a caller that loads weights into it."""
+    if generator is None:
+        return _param(torch.empty(shape, dtype=dtype, device=device))
+    scale = scale if scale is not None else (1.0 / max(shape[0], 1)) ** 0.5
+    return _param((torch.randn(shape, generator=generator, dtype=F32,
+                               device=device) * scale).to(dtype))
+
+
+def _zeros(shape, dtype, device):
+    return _param(torch.zeros(shape, dtype=dtype, device=device))
+
+
+def init_attn(cfg: ArchConfig, dtype, device, generator) -> nn.ParameterDict:
+    H, kv, dh, D = cfg.n_heads, cfg.n_kv, cfg.dh, cfg.d_model
+    p = nn.ParameterDict({
+        "ln": _zeros((D,), dtype, device),
+        "wq": _init((D, H * dh), generator, device, dtype=dtype),
+        "wk": _init((D, kv * dh), generator, device, dtype=dtype),
+        "wv": _init((D, kv * dh), generator, device, dtype=dtype),
+        "wo": _init((H * dh, D), generator, device, dtype=dtype),
+    })
+    if cfg.qkv_bias:
+        p["bq"] = _zeros((H * dh,), dtype, device)
+        p["bk"] = _zeros((kv * dh,), dtype, device)
+        p["bv"] = _zeros((kv * dh,), dtype, device)
+    if cfg.attn_softcap is not None:
+        p["post_ln"] = _zeros((D,), dtype, device)
+    return p
+
+
+def init_mlp(cfg: ArchConfig, dtype, device, generator) -> nn.ParameterDict:
+    D, F = cfg.d_model, cfg.d_ff
+    return nn.ParameterDict({
+        "ln": _zeros((D,), dtype, device),
+        "w_gate": _init((D, F), generator, device, dtype=dtype),
+        "w_up": _init((D, F), generator, device, dtype=dtype),
+        "w_down": _init((F, D), generator, device, dtype=dtype),
+    })

@@ -5,7 +5,8 @@ idioms PyTorch has no single call for.
   means the card, and asking for the card where there is none raises
   (the port never falls back to the CPU on its own).
 * ``set_drop`` — ``x.at[idx].set(v, mode="drop")``: lanes whose index
-  lies outside ``[0, len)`` are dropped.  The scatter goes into a buffer
+  lies outside ``[-len, len)`` are dropped, and negative ones count from
+  the end, as in JAX.  The scatter goes into a buffer
   one slot longer and the extra slot is sliced away.
 * ``segment_min`` / ``segment_max`` / ``segment_sum`` — ``jax.ops.segment_*``
   with JAX's fill for empty segments (the dtype's max / min / zero).
@@ -14,9 +15,13 @@ idioms PyTorch has no single call for.
   Float sums are not: they add each segment's lanes in lane order
   (``kernels/segment.py``), after a stable sort by segment id.
 * ``cumsum32`` — ``torch.cumsum`` promotes int32 to int64; cast back.
-* ``take`` — a JAX gather ``x[i]``: negative indices count from the end
-  and the rest are clamped into range, where torch would raise (and the
-  card would trap).
+* ``take`` / ``clamp_index`` — a JAX gather ``x[i]``: negative indices
+  count from the end and the rest are clamped into range, where torch
+  would raise (and the card would trap).
+* ``in_range`` — segment ids with those outside ``[0, num)`` sent to a
+  spare segment ``num``: reduce into ``num + 1`` segments and drop the
+  last, as ``jax.ops.segment_*`` drops such ids.  Only a session with
+  ``admission="off"`` lets such ids into a graph.
 """
 from __future__ import annotations
 
@@ -37,7 +42,7 @@ def resolve_device(device=None) -> torch.device:
 def set_drop(buf: torch.Tensor, idx: torch.Tensor, vals,
              last_wins: bool = False) -> torch.Tensor:
     """A new tensor: ``buf`` with ``buf[idx] = vals``, dropping lanes whose
-    index is out of range.
+    index is out of range (negative indices count from the end).
 
     With ``last_wins`` a duplicated index takes the value of its LAST lane
     (what XLA's scatter does on the CPU); the card's ``index_put_`` picks
@@ -46,7 +51,7 @@ def set_drop(buf: torch.Tensor, idx: torch.Tensor, vals,
     off."""
     L = buf.shape[0]
     idx = idx.to(torch.int64)
-    idx = torch.where((idx >= 0) & (idx < L), idx, L)
+    idx = torch.where((idx >= -L) & (idx < L), torch.remainder(idx, L), L)
     if last_wins and idx.numel():
         lanes = torch.arange(idx.shape[0], device=idx.device)
         win = torch.full((L + 1,), -1, dtype=torch.int64, device=idx.device)
@@ -78,9 +83,8 @@ def segment_max(vals: torch.Tensor, seg: torch.Tensor,
 
 def segment_sum(vals: torch.Tensor, seg: torch.Tensor,
                 num: int) -> torch.Tensor:
-    """``jax.ops.segment_sum``: ids outside ``[0, num)`` are dropped.  A
-    float sum adds each segment's lanes in lane order, after a stable sort
-    of the lanes by segment id."""
+    """``jax.ops.segment_sum``.  A float sum adds each segment's lanes in
+    lane order, after a stable sort of the lanes by segment id."""
     if vals.dtype.is_floating_point:
         from repro_torch.kernels.segment import segment_sum_sorted
         order = torch.argsort(seg, stable=True)
@@ -92,10 +96,18 @@ def segment_sum(vals: torch.Tensor, seg: torch.Tensor,
     return out.index_add_(0, seg.to(torch.int64), vals)
 
 
+def in_range(seg: torch.Tensor, num: int) -> torch.Tensor:
+    return torch.remainder(seg.clamp(-1, num), num + 1)
+
+
+def clamp_index(i: torch.Tensor, L: int) -> torch.Tensor:
+    """Indices into a length-``L`` axis as a JAX gather takes them: the
+    ones in [-L, 0) count from the end, the rest clamp into [0, L)."""
+    return torch.remainder(i.clamp(-L, L - 1), L)
+
+
 def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
-    L = x.shape[0]
-    i = i.to(torch.int64)
-    return x[torch.where(i < 0, i + L, i).clamp(0, L - 1)]
+    return x[clamp_index(i.to(torch.int64), x.shape[0])]
 
 
 def to_device(x, device) -> torch.Tensor:

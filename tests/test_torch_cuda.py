@@ -5,8 +5,13 @@ nor repro, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Every comparison is bit-exact, float outputs included: the float kernels
-and their plain versions add in the same fixed order."""
+Every graph comparison is bit-exact, float outputs included: the float
+kernels and their plain versions add in the same fixed order.  The
+flash-attention kernel is held to its plain version within the
+tolerances of tests/test_kernels.py (bf16 3e-2; float32 2e-5 rather than
+1e-5, for the card's expf and another summation order)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,9 +20,11 @@ import repro_torch
 from repro_torch.algos import pagerank, sssp
 from repro_torch.graph.csr import INF_W
 from repro_torch.kernels import csr_relax as TC
+from repro_torch.kernels import flash_attention as TF
 from repro_torch.kernels import repair as TK
 from repro_torch.kernels import segment as TS
 from repro_torch.kernels.ell import pack_ell
+from repro_torch.kernels.ref import flash_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -200,6 +207,84 @@ def test_slice2_kernels_match_plain(dev, n, e, k, block):
                     "segment_sum_sorted")
 
 
+@pytest.mark.parametrize("k", [4, 8])
+def test_row_kernels_gather_out_of_range_sources_as_jax(dev, k):
+    """Sources outside [0, n] in the pack (an unchecked, admission="off"
+    graph's negative ids; past n for good measure) are gathered as a JAX
+    gather takes them — from the end, or clamped — by all five row kernels,
+    bit for bit with their plain versions."""
+    n = 300
+    ell, vals, fvals = small_ell(dev, n, 1500, k)
+    rng = np.random.default_rng(k)
+    src = ell.ell_src.clone()
+    bad = torch.from_numpy(rng.random(src.shape) < 0.1).to(dev)
+    ids = torch.from_numpy(rng.choice(
+        [-1, -5, -n - 1, -n - 7, n + 1, n + 40, -(2 ** 31)],
+        size=src.shape).astype(np.int32)).to(dev)
+    src = torch.where(bad, ids, src).contiguous()
+    assert bool((src < 0).any()) and bool((src > n).any())
+    rmin = TC.relax_rowmin_plain(src, ell.ell_w, vals)
+    tgt = torch.where(torch.arange(ell.R, device=dev) % 3 == 0, rmin + 1,
+                      rmin)
+    cases = [
+        (TK.LAUNCHES, "fused_relax_rows",
+         lambda: TK.fused_relax_rows(src, ell.ell_w, vals, block=128),
+         lambda: TK.fused_relax_rows_plain(src, ell.ell_w, vals, 128)),
+        (TK.LAUNCHES, "fused_spmv_rows",
+         lambda: TK.fused_spmv_rows(src, ell.row2dst, fvals, block=128),
+         lambda: TK.fused_spmv_rows_plain(src, ell.row2dst, fvals, 128)),
+        (TC.LAUNCHES, "relax_rowmin",
+         lambda: TC.relax_rowmin(src, ell.ell_w, vals), lambda: rmin),
+        (TC.LAUNCHES, "spmv_rowsum",
+         lambda: TC.spmv_rowsum(src, fvals),
+         lambda: TC.spmv_rowsum_plain(src, fvals)),
+        (TC.LAUNCHES, "relax_rowargmin",
+         lambda: TC.relax_rowargmin(src, ell.ell_w, vals, tgt, n=n),
+         lambda: TC.relax_rowargmin_plain(src, ell.ell_w, vals, tgt, n)),
+    ]
+    for counts, name, kernel, plain in cases:
+        assert_same(launched(counts, name, kernel), plain(), name)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda_chained"])
+def test_admission_off_bad_ids_on_card_match_cpu_run(dev, backend):
+    """With admission="off", ids past n, equal to n and negative reach the
+    engine unchecked (the add from -5 puts a negative source into the
+    pack, the one to -3 a negative destination).  On the card, SSSP gives
+    the CPU run's dist and parent bit for bit and PageRank its pr within
+    1e-5; the CPU run is held to the reference by
+    tests/test_torch_{sssp,pagerank}.py."""
+    n, edges, w = random_graph(11, 200, 1000)
+    rng = np.random.default_rng(11)
+    good = rng.integers(0, n, (40, 2)).astype(np.int32)
+    adds = np.column_stack([good, rng.integers(1, 50, 40)]).astype(np.int32)
+    bad_adds = np.array([[n + 3, 1, 5], [1, n + 3, 5], [-2, 1, 5],
+                         [2, n, 5], [n, 2, 5], [3, -3, 7], [-5, 2, 1]],
+                        np.int32)
+    adds = np.insert(adds, [1, 5, 9, 13, 17, 21, 25], bad_adds, axis=0)
+    dels = np.insert(edges[:40].astype(np.int32), [0, 6, 12, 18],
+                     np.array([[n + 1, 0], [0, -1], [n, 3], [5, n]],
+                              np.int32), axis=0)
+    out = {}
+    for where in ("cpu", dev):
+        csr = repro_torch.build_csr(n, edges, w, device=where)
+        stream = repro_torch.UpdateStream(adds=adds, dels=dels)
+        got = []
+        for start, step in (
+                (lambda s: s.call(sssp.static_sssp, 0), sssp.stream_step),
+                (lambda s: s.call(pagerank.static_pr, 1e-4, 0.85, 100),
+                 pagerank.make_stream_step(1e-4, 0.85, 100))):
+            sess = repro_torch.bind_graph(csr, backend=backend, capacity=16,
+                                          admission="off", device=where)
+            got.append(sess.run_stream(stream, 8, step, start(sess)))
+        out[str(where)] = got
+    (s_cpu, p_cpu), (s_gpu, p_gpu) = out.values()
+    for k in ("dist", "parent"):
+        assert torch.equal(s_cpu[k], s_gpu[k].cpu()), k
+    torch.testing.assert_close(p_gpu["pr"].cpu(), p_cpu["pr"], rtol=1e-5,
+                               atol=1e-6)
+
+
 def test_slice2_wrappers_refuse_bad_inputs(dev):
     ell, vals, fvals = small_ell(dev, 64, 256, 8)
     with pytest.raises(TypeError):
@@ -268,3 +353,77 @@ def test_chained_sssp_matches_cpu_run(dev):
     assert TC.LAUNCHES["relax_rowargmin"] > 0
     for k in ("dist", "parent"):
         assert torch.equal(out[0][k], out[1][k].cpu()), k
+
+
+@pytest.mark.parametrize("bh,S,dh,causal,dtype,cap", [
+    (2, 256, 128, True, torch.float32, None),
+    (2, 256, 128, False, torch.float32, None),
+    (2, 512, 64, True, torch.bfloat16, None),
+    (2, 256, 256, True, torch.float32, 30.0),
+    (3, 200, 128, True, torch.bfloat16, None),     # ragged S, tensor cores
+    (3, 200, 64, False, torch.bfloat16, None),
+    (2, 130, 96, True, torch.bfloat16, 50.0),      # bf16 on the CUDA cores
+    (2, 100, 16, True, torch.float32, None),
+])
+def test_flash_kernel_matches_plain(dev, bh, S, dh, causal, dtype, cap):
+    """The flash kernel against its plain version and the O(S^2) oracle on
+    the same inputs, every row written (ragged S included)."""
+    rng = np.random.default_rng(S + dh)
+    q, k, v = (torch.from_numpy(rng.standard_normal((bh, S, dh)).astype(
+        np.float32)).to(dev, dtype) for _ in range(3))
+    got = launched(TF.LAUNCHES, "flash_attention", lambda: TF.flash_attention(
+        q, k, v, causal=causal, softcap=cap))
+    tol = 3e-2 if dtype == torch.bfloat16 else 2e-5
+    for want in (TF.flash_attention_plain(q, k, v, causal=causal,
+                                          softcap=cap),
+                 flash_ref(q, k, v, causal=causal, softcap=cap)):
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        err = float((got.float() - want.float()).abs().max())
+        assert err < tol, err
+
+
+def test_flash_wrapper_refuses_bad_inputs(dev):
+    q = torch.zeros((2, 64, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(TypeError):
+        TF.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(TypeError):
+        TF.flash_attention(q, q.float(), q)
+    with pytest.raises(ValueError):
+        TF.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError):
+        TF.flash_attention(q, q[:, :32], q)
+    with pytest.raises(ValueError):
+        TF.flash_attention(q.transpose(1, 2), q.transpose(1, 2),
+                           q.transpose(1, 2))
+    wide = torch.zeros((1, 8, 320), dtype=torch.float32, device=dev)
+    with pytest.raises(ValueError):
+        TF.flash_attention(wide, wide, wide)
+
+
+def test_lm_prefill_launches_flash_once_per_layer(dev):
+    """starcoder2-7b at full width cut to 2 layers, bf16, on the card:
+    prefill launches the flash kernel once per layer, decode never; the
+    cuda backend's logits stay near the torch backend's (the same weights
+    with the plain attention; bf16 attention accumulators differ)."""
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_arch("starcoder2-7b"), n_layers=2,
+                              repeat=2)
+    model = Model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model.init(gen)
+    prompts = torch.randint(0, cfg.vocab, (2, 300), generator=gen,
+                            device=dev)
+    TF.reset_launches()
+    logits, caches = serve.prefill(model, prompts, 304)
+    assert TF.LAUNCHES["flash_attention"] == 2
+    toks = serve.decode(model, logits, caches, 300, 4)
+    assert TF.LAUNCHES["flash_attention"] == 2
+    assert toks.shape == (2, 4) and bool(((toks >= 0) &
+                                          (toks < cfg.vocab)).all())
+    model.backend = "torch"
+    ref, _ = model.prefill_step(prompts)
+    assert TF.LAUNCHES["flash_attention"] == 2
+    assert float((logits - ref).abs().max()) <= 0.25 * float(ref.std())

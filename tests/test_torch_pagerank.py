@@ -148,3 +148,38 @@ def test_pagerank_state_carries_over(refs):
 
 def test_stream_step_is_cached():
     assert t_pr.make_stream_step(*KNOBS) is t_pr.make_stream_step(*KNOBS)
+
+
+@pytest.mark.parametrize("ref_backend,port_backend", [("pallas", "cuda"),
+                                                      ("jnp", "torch")])
+def test_admission_off_out_of_range_ids_pagerank(ref_backend, port_backend):
+    """PageRank with ``admission="off"``: adds and deletes with ids past
+    n, equal to n and negative (the add from -5 enters the diff pool, the
+    one to -3 lands in the pack with a negative destination) reach the
+    engines unchecked.  The port gives the reference's pr, to the float
+    tolerance of this file, and its graph and pack bit for bit."""
+    from test_torch_sssp import assert_tree_equal, host_tree
+    sc = digraph_scenario("batch8")
+    n = sc.n
+    bad_adds = np.array([[n + 3, 1, 5], [1, n + 3, 5], [-2, 1, 5],
+                         [2, n, 5], [n, 2, 5], [3, -3, 7], [-5, 2, 1]],
+                        np.int32)
+    bad_dels = np.array([[n + 1, 0], [0, -1], [n, 3], [5, n]], np.int32)
+    adds = np.insert(sc.stream.adds, [1, 2, 3, 5, 6, 8, 8], bad_adds,
+                     axis=0)
+    dels = np.insert(sc.stream.dels, [0, 3, 5, 8], bad_dels, axis=0)
+    r_sess = repro.bind_graph(repro.graph.build_csr(n, sc.edges, sc.w),
+                              backend=ref_backend, capacity=32,
+                              admission="off")
+    t_sess = repro_torch.bind_graph(
+        repro_torch.build_csr(n, sc.edges, sc.w, device="cpu"),
+        backend=port_backend, capacity=32, admission="off", device="cpu")
+    r_p = r_sess.run_stream(sc.stream.__class__(adds=adds, dels=dels), 4,
+                            r_pr.make_stream_step(*KNOBS),
+                            r_sess.call(r_pr.static_pr, *KNOBS))
+    t_p = t_sess.run_stream(repro_torch.UpdateStream(adds=adds, dels=dels),
+                            4, t_pr.make_stream_step(*KNOBS),
+                            t_sess.call(t_pr.static_pr, *KNOBS))
+    np.testing.assert_allclose(t_p["pr"].numpy(), np.asarray(r_p["pr"]),
+                               rtol=RTOL, atol=ATOL)
+    assert_tree_equal(host_tree(r_sess.handle), host_tree(t_sess.handle))

@@ -329,3 +329,55 @@ def test_cuda_engine_sweep_refuses_a_bare_graph():
         e._run_sweep(h.g, t_sssp._relax_sweep(), props)
     assert e._run_sweep(h, t_sssp._relax_sweep(), props)["dist"].shape == \
         (sc.n,)
+
+
+@pytest.mark.parametrize("ref_backend,port_backend", [("pallas", "cuda"),
+                                                      ("jnp", "torch")])
+def test_admission_off_out_of_range_ids(ref_backend, port_backend):
+    """With ``admission="off"`` no guard masks bad ids, so the engines see
+    them: adds and deletes with ids past n, equal to n (the pool's vacant
+    sentinel) and negative, spread over the batches; the add from -5 enters
+    the diff pool, so the pack holds a negative source that the row kernels
+    gather.  The port gives the reference's dist, parent, graph and pack.
+    (Before the fix the torch engine raised on an add with dst == n: its
+    segment reductions and gathers indexed out of range where JAX drops
+    and clamps.)"""
+    sc = scenario("batch8")
+    n = sc.n
+    bad_adds = np.array([[n + 3, 1, 5], [1, n + 3, 5], [-2, 1, 5],
+                         [2, n, 5], [n, 2, 5], [3, -1, 7], [-5, 2, 1]],
+                        np.int32)
+    bad_dels = np.array([[n + 1, 0], [0, -1], [n, 3], [5, n]], np.int32)
+    adds = np.insert(sc.stream.adds, [1, 2, 3, 5, 6, 8, 8], bad_adds,
+                     axis=0)
+    dels = np.insert(sc.stream.dels, [0, 3, 5, 8], bad_dels, axis=0)
+    stream = sc.stream.__class__(adds=adds, dels=dels)
+    r_csr = repro.graph.build_csr(n, sc.edges, sc.w)
+    t_csr = repro_torch.build_csr(n, sc.edges, sc.w, device="cpu")
+    r_sess = repro.bind_graph(r_csr, backend=ref_backend, capacity=32,
+                              admission="off")
+    t_sess = repro_torch.bind_graph(t_csr, backend=port_backend, capacity=32,
+                                    admission="off", device="cpu")
+    r_p = r_sess.run_stream(stream, 4, r_sssp.stream_step,
+                            r_sess.call(r_sssp.static_sssp, sc.src))
+    t_p = t_sess.run_stream(
+        repro_torch.UpdateStream(adds=adds, dels=dels), 4,
+        t_sssp.stream_step, t_sess.call(t_sssp.static_sssp, sc.src))
+    for k in ("dist", "parent"):
+        assert np.array_equal(np.asarray(r_p[k]), t_p[k].numpy()), k
+    assert_tree_equal(host_tree(r_sess.handle), host_tree(t_sess.handle))
+
+
+@pytest.mark.parametrize("admission,raw", [("off", True), (None, True),
+                                           ("clamp", False),
+                                           ("reject", False),
+                                           ("quarantine", False)])
+def test_raw_id_semantics_follow_admission(admission, raw):
+    """Only a session that admits batches unchecked gets JAX's out-of-range
+    semantics in its sweeps (and pays for them); a checked one keeps the
+    plain gathers and reductions."""
+    sc = scenario("batch1")
+    sess = repro_torch.bind_graph(
+        repro_torch.build_csr(sc.n, sc.edges, sc.w, device="cpu"),
+        backend="torch", admission=admission, device="cpu")
+    assert sess.engine.raw_ids is raw
