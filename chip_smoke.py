@@ -57,13 +57,16 @@ Phases (any failure exits non-zero):
    same model with the plain version in the kernel's place, within 0.25
    std and a mean |d| at most twice that of the plain version against
    itself over 256-key blocks; every decoded token in range.  ``flash_attention`` against its
-   plain version at the prefill's shape and four small ones (float32
+   plain version at the prefill's shape and seven small ones (float32
    2e-5; bf16 3e-2 and, relative to the values, 2^-7 * A + 2^-6 * |want|
    elementwise, A the attention of |v|, and 1e-2 normwise; softcap rtol
-   1e-4 / atol 1e-5), timed
-   at the prefill's shape beside its bound and
-   ``scaled_dot_product_attention`` as the yardstick.  The graph paths
-   must not launch it.
+   1e-4 / atol 1e-5; bf16 down to one row and under one 128-key tile),
+   timed at the prefill's shape beside its bound and
+   ``scaled_dot_product_attention`` as the yardstick (the ratio and the
+   TFLOP/s reached go into its record).  The graph paths must not
+   launch it.  With ``--profile`` the prefill and decode run under
+   torch.profiler, and the copies around the kernel (``repeat_kv`` and
+   the head transposes in and out) are timed at the prefill's shapes.
 
 The last two lines are the kernels' JSON record and the device record.
 """
@@ -381,6 +384,9 @@ FLASH_CASES = [  # shape, dtype, causal, softcap, atol, rtol
     ((2, 256, 128), "float32", False, None, 2e-5, 0.0),
     ((2, 512, 64), "bfloat16", True, None, 3e-2, 0.0),
     ((2, 256, 256), "float32", True, 30.0, 1e-5, 1e-4),
+    ((2, 1, 128), "bfloat16", True, None, 3e-2, 0.0),      # one row
+    ((3, 100, 128), "bfloat16", False, None, 3e-2, 0.0),   # under one tile
+    ((2, 256, 128), "bfloat16", True, 30.0, 3e-2, 0.0),
 ]
 # cuda vs torch prefill logits at full depth.  The backends differ only
 # in prefill attention: the kernel keeps a float32 accumulator, the
@@ -462,8 +468,8 @@ def check_flash(torch, args, flush, FA, launches) -> dict:
     q, k, v = prefill_qkv
     BH, S, dh = q.shape
     # the causal half of 4 * S^2 * dh * BH, on the bf16 tensor cores
-    b_ms, b_by = bound(nbytes(q, k, v, q), 2 * S * S * dh * BH,
-                       TENSOR_BF16_OPS_PER_S)
+    flop = 2 * S * S * dh * BH
+    b_ms, b_by = bound(nbytes(q, k, v, q), flop, TENSOR_BF16_OPS_PER_S)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rec = dict(name="flash_attention", route="cuda",
                source="src/repro_torch/csrc/flash_attention.cu",
@@ -478,11 +484,36 @@ def check_flash(torch, args, flush, FA, launches) -> dict:
                    q[None], k[None], v[None], is_causal=True), args.reps,
                    flush),
                shape=dict(BH=BH, S=S, dh=dh, dtype="bfloat16", causal=True))
+    rec["sdpa_ratio"] = rec["ms"] / rec["library_ms"]
+    rec["tflops"] = flop / rec["ms"] / 1e9
     log(f"[kernel] flash_attention: {rec['ms']:.4f} ms (plain "
         f"{rec['plain_ms']:.4f}, bound {b_ms:.4f} by {b_by}, SDPA "
-        f"{rec['library_ms']:.4f}) max abs err {errs[0]:.3e}, {launches} "
-        f"launches in the prefill | {rec['shape']}")
+        f"{rec['library_ms']:.4f}; {rec['sdpa_ratio']:.2f}x SDPA, "
+        f"{rec['tflops']:.1f} TFLOP/s) max abs err {errs[0]:.3e}, "
+        f"{launches} launches in the prefill | {rec['shape']}")
     return rec
+
+
+def attention_copies_ms(torch, args, cfg) -> float:
+    """Device time of one layer's copies around the flash kernel at the
+    prefill's shapes, as ``models/layers.py`` makes them: k and v repeated
+    to every head (``repeat_kv``), q, k and v moved to (B * H, S, dh), and
+    the output moved back to (B, S, H * dh)."""
+    from repro_torch.models import layers
+    B, S, H, kv, dh = LM_BATCH, LM_PROMPT, cfg.n_heads, cfg.n_kv, cfg.dh
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    q = torch.randn((B, S, H, dh), generator=gen, device=DEV).bfloat16()
+    k, v = (torch.randn((B, S, kv, dh), generator=gen, device=DEV)
+            .bfloat16() for _ in range(2))
+    o = torch.randn((B * H, S, dh), generator=gen, device=DEV).bfloat16()
+
+    def copies():
+        layers.to_heads(q), layers.to_heads(layers.repeat_kv(k, H // kv))
+        layers.to_heads(layers.repeat_kv(v, H // kv))
+        return o.reshape(B, H, S, dh).transpose(1, 2).reshape(B, S, H * dh)
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
+    return median_ms(torch, copies, args.reps, flush)
 
 
 def lm_phase(torch, args, counts, FA) -> dict:
@@ -547,6 +578,10 @@ def lm_phase(torch, args, counts, FA) -> dict:
         profile_window(torch, f"lm decode ({G - 1} steps)",
                        lambda: serve.decode(model, logits_p, caches, P, G))
         del logits_p, caches
+        copy_ms = attention_copies_ms(torch, args, cfg)
+        log(f"[profile] repeat_kv + head transposes around the flash "
+            f"kernel: {copy_ms:.4f} ms a layer, {cfg.n_layers * copy_ms:.2f}"
+            f" ms a prefill (CUDA events, B={B} P={P})")
 
     model.backend = "torch"
     counts.reset()

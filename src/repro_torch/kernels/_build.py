@@ -3,7 +3,8 @@ helpers every kernel wrapper launches with.
 
 Each ``csrc/*.cu`` is compiled at first use with ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, all of them
-at once (one ``nvcc`` process per source), keyed by one hash of every
+at once (one ``nvcc`` process per source, with the common flags and the
+source's own from ``SOURCE_FLAGS``), keyed by one hash of every
 source, the ``*.cuh`` headers they include and the flags; the libraries
 are loaded with ``ctypes``.  They go
 to ``build/repro_torch/`` at the root of the checkout when the package
@@ -29,7 +30,15 @@ import torch
 _HERE = pathlib.Path(__file__).resolve()
 CSRC = _HERE.parents[1] / "csrc"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# each source's own flags: the graph kernels' float sums are bit-exact
+# against their plain versions only without fused multiply-adds
+SOURCE_FLAGS = {
+    "repair.cu": ("--fmad=false",),
+    "csr_relax.cu": ("--fmad=false",),
+    "segment.cu": ("--fmad=false",),
+    "flash_attention.cu": (),
+}
 
 
 def _build_dir() -> pathlib.Path:
@@ -77,6 +86,13 @@ def sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
+def flags(src: pathlib.Path) -> tuple:
+    """nvcc's flags for one source: the common ones and its own."""
+    if src.name not in SOURCE_FLAGS:
+        raise KeyError(f"{src.name} has no entry in SOURCE_FLAGS")
+    return FLAGS + SOURCE_FLAGS[src.name]
+
+
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     cand = pathlib.Path(home) / "bin" / "nvcc"
@@ -93,6 +109,8 @@ def library_paths() -> dict:
     """{source: library} for every source, under one hash of them all and
     of the headers they include."""
     h = hashlib.sha256(" ".join(FLAGS).encode())
+    for name in sorted(SOURCE_FLAGS):
+        h.update(f"{name} {' '.join(SOURCE_FLAGS[name])}".encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode() + src.read_bytes())
     digest = h.hexdigest()[:16]
@@ -113,7 +131,7 @@ def load() -> types.SimpleNamespace:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()
             procs = {src: (subprocess.Popen(
-                [_nvcc(), *FLAGS, "-o", str(so.with_suffix(
+                [_nvcc(), *flags(src), "-o", str(so.with_suffix(
                     f".{os.getpid()}.tmp")), str(src)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
                 so) for src, so in todo.items()}

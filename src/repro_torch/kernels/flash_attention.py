@@ -10,7 +10,9 @@ running max, denominator and accumulator, ``p`` cast to v's type before
 the P·V product, and ``acc / max(l, 1e-20)`` cast to q's type.
 
 On a CUDA tensor it launches the hand-written kernel
-(``csrc/flash_attention.cu``) or raises; only a tensor on the CPU takes
+(``csrc/flash_attention.cu``: bf16 with dh 64 or 128 on the tensor cores
+through a TMA ring and ``wgmma``, 128 q rows by 128-key tiles; every
+other case on the CUDA cores) or raises; only a tensor on the CPU takes
 the plain version, ``flash_attention_plain``: the same blockwise online
 softmax in PyTorch, with the same float32 state and cast points, over KV
 blocks of ``bk`` keys (the Pallas default, 512).  ``LAUNCHES`` counts

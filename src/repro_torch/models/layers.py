@@ -132,14 +132,19 @@ def flash_attention(q, k, v, cfg: ArchConfig, positions, causal: bool,
     return (acc / denom.to(acc.dtype)).to(q.dtype)
 
 
+def to_heads(x):
+    """(B, S, H, dh) -> the flash kernel's contiguous (B * H, S, dh)."""
+    B, S, H, dh = x.shape
+    return x.transpose(1, 2).reshape(B * H, S, dh).contiguous()
+
+
 def _flash_kernel(q, k, v, cfg: ArchConfig, causal, scale):
     B, S, H, dh = q.shape
     if scale != dh ** -0.5:
         raise ValueError(f"the flash kernel scales q by dh**-0.5, "
                          f"got scale={scale}")
-    heads = lambda x: x.transpose(1, 2).reshape(B * H, S, dh).contiguous()
-    o = FK.flash_attention(heads(q), heads(k), heads(v), causal=causal,
-                           softcap=cfg.attn_softcap)
+    o = FK.flash_attention(to_heads(q), to_heads(k), to_heads(v),
+                           causal=causal, softcap=cfg.attn_softcap)
     return o.reshape(B, H, S, dh).transpose(1, 2)
 
 

@@ -383,6 +383,55 @@ def test_flash_kernel_matches_plain(dev, bh, S, dh, causal, dtype, cap):
         assert err < tol, err
 
 
+def bf16_close(got, q, k, v, causal, cap):
+    """A bf16 output of the kernel against its plain version: flat 3e-2,
+    and relative to the values 2^-7 * A + 2^-6 * |want| elementwise (A the
+    attention of |v|: twice P's bf16 rounding against each version's own
+    running max plus an output ulp) and 1e-2 normwise."""
+    want = TF.flash_attention_plain(q, k, v, causal=causal, softcap=cap)
+    A = TF.flash_attention_plain(q, k, v.abs(), causal=causal,
+                                 softcap=cap).double()
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    d, w = (got.double() - want.double()).abs(), want.double()
+    assert float(d.max()) < 3e-2, float(d.max())
+    assert bool((d <= 2.0 ** -7 * A + 2.0 ** -6 * w.abs()).all())
+    assert float(d.norm()) <= 1e-2 * float(w.norm())
+
+
+@pytest.mark.parametrize("dh,S,causal,cap", [
+    (dh, S, causal, None) for dh in (64, 128) for S in (1, 100, 129, 2048)
+    for causal in (True, False)] + [(128, 100, True, 30.0),
+                                    (128, 2048, True, 30.0),
+                                    (128, 129, False, 30.0)])
+def test_flash_tensor_core_kernel_matches_plain(dev, dh, S, causal, cap):
+    """The wgmma kernel (bf16, dh 64 or 128) at a single row, under one
+    tile, one key past a tile and 16 tiles, against its plain version."""
+    rng = np.random.default_rng(S * dh + causal)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, S, dh)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+    got = launched(TF.LAUNCHES, "flash_attention", lambda: TF.flash_attention(
+        q, k, v, causal=causal, softcap=cap))
+    bf16_close(got, q, k, v, causal, cap)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_kernel_keeps_heads_apart(dev, dh):
+    """Head 1's k and v are NaN: heads 0 and 2 (S = 200, so their last
+    KV tile runs past S) must not read them and equal the plain version."""
+    rng = np.random.default_rng(dh)
+    q, k, v = (torch.from_numpy(rng.standard_normal((3, 200, dh)).astype(
+        np.float32)).to(dev, torch.bfloat16) for _ in range(3))
+    k[1], v[1] = float("nan"), float("nan")
+    for causal in (True, False):
+        got = launched(TF.LAUNCHES, "flash_attention",
+                       lambda: TF.flash_attention(q, k, v, causal=causal))
+        torch.cuda.synchronize()
+        keep = [0, 2]
+        assert bool(torch.isfinite(got[keep]).all())
+        bf16_close(got[keep], q[keep], k[keep], v[keep], causal, None)
+
+
 def test_flash_wrapper_refuses_bad_inputs(dev):
     q = torch.zeros((2, 64, 64), dtype=torch.bfloat16, device=dev)
     with pytest.raises(TypeError):

@@ -2,7 +2,8 @@
 and the port's O(S²) oracle against repro's Pallas flash kernel
 (interpret mode) and ``repro.kernels.ref.flash_ref`` on the CPU, at the
 shapes and tolerances of tests/test_kernels.py (float32 1e-5, bf16 3e-2,
-softcap rtol 1e-4 / atol 1e-5).  The CUDA kernel against the plain
+softcap rtol 1e-4 / atol 1e-5), and at the tensor-core kernel's tiling
+(128 q rows by 128 keys).  The CUDA kernel against the plain
 version on the card: tests/test_torch_cuda.py."""
 import numpy as np
 import jax.numpy as jnp
@@ -74,3 +75,24 @@ def test_flash_wrapper_on_cpu_counts_no_launch():
     TF.reset_launches()
     TF.flash_attention(q, k, v)
     assert TF.LAUNCHES == {"flash_attention": 0}
+
+
+def test_flash_plain_at_kernel_tile_matches_pallas():
+    """The plain version over KV blocks of 128 keys, the tensor-core
+    kernel's KV tile, against the Pallas kernel at bq = bk = 128 in bf16."""
+    (jq, jk, jv), (q, k, v) = inputs(11, 256, 128, "bfloat16")
+    pallas = pallas_flash(jq, jk, jv, causal=True, bq=128, bk=128)
+    got = TF.flash_attention_plain(q, k, v, causal=True, bk=128)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert err(got, pallas) < 3e-2
+
+
+@pytest.mark.parametrize("dtype,tol", [("bfloat16", 3e-2),
+                                       ("float32", 1e-5)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_at_kernel_tile_ragged(dtype, tol, causal):
+    """S = 200 over KV blocks of 128 keys: a full tile and a ragged one,
+    held to the O(S^2) oracle (the Pallas grid leaves the tail unwritten)."""
+    (jq, jk, jv), (q, k, v) = inputs(13, 200, 128, dtype)
+    got = TF.flash_attention_plain(q, k, v, causal=causal, bk=128)
+    assert err(got, R.flash_ref(jq, jk, jv, causal=causal)) < tol

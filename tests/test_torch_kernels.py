@@ -308,3 +308,25 @@ def test_cpu_wrappers_count_no_launch():
     assert TC.LAUNCHES == {"relax_rowmin": 0, "spmv_rowsum": 0,
                            "relax_rowargmin": 0}
     assert TS.LAUNCHES == {"segment_sum_sorted": 0}
+
+
+def test_build_flags_are_per_source(monkeypatch):
+    """Each CUDA source is compiled with its own flags.  The graph kernels
+    keep --fmad=false: their float sums equal their plain versions bit for
+    bit only without fused multiply-adds.  A source's flags key its
+    library, so changing them rebuilds it."""
+    from repro_torch.kernels import _build
+    assert {p.name for p in _build.sources()} == set(_build.SOURCE_FLAGS)
+    for name in ("repair.cu", "csr_relax.cu", "segment.cu"):
+        assert "--fmad=false" in _build.flags(_build.CSRC / name)
+    assert "--fmad=false" not in _build.FLAGS
+    for src in _build.sources():
+        got = _build.flags(src)
+        assert got[:len(_build.FLAGS)] == _build.FLAGS
+        assert "arch=compute_90a,code=sm_90a" in got
+    with pytest.raises(KeyError):
+        _build.flags(_build.CSRC / "unlisted.cu")
+    before = _build.library_paths()
+    monkeypatch.setitem(_build.SOURCE_FLAGS, "flash_attention.cu",
+                        ("--fmad=false",))
+    assert _build.library_paths() != before
