@@ -33,7 +33,11 @@ Phases (any failure exits non-zero):
    fixed order), with their times beside the bound (bytes each input read
    once and each output written once, over 3.35 TB/s, or operations over
    the float32 peak, whichever is larger) and a one-call PyTorch
-   yardstick where one exists.
+   yardstick where one exists.  ``fused_relax_rows`` and
+   ``fused_spmv_rows`` must take their warp-loaded path at these shapes
+   (their records name it), and also run ``ROW_CASES`` (tiles of 128 to
+   512, K 4 to 16, one tile, an RMAT pack, misaligned views), bit for
+   bit.
 4. Correctness of the runs: SSSP ``dist``, ``parent`` and every DynGraph
    array equal the ``torch`` backend's, ``cuda_chained``'s dist and parent
    equal ``cuda``'s, and dist equals scipy's Dijkstra over the
@@ -197,6 +201,116 @@ def check_kernel(torch, args, flush, name, source, replaces, launches, fn,
         f"bound {b_ms:.4f} by {b_by}, library {rec['library_ms']}) "
         f"bit-exact, {launches} launches on its path | {shape}")
     return rec
+
+
+# The two fused row kernels against their plain versions, bit for bit, on
+# packs the main path does not reach: name, pack (an RMAT graph's, skewed
+# with hub sources and vacant rows, or (n, R) of a random pack), K, tile
+# rows, and whether ell_src and the side array are views 4 bytes into a
+# buffer (the kernels then load slot by slot; aligned K = 8 packs take the
+# warp-loaded path).  vals[n] is a sentinel that is no identity (12345,
+# 0.5), so a padding slot dropped instead of taking vals[n] shows; every
+# case runs on two draws of vals, each launch into outputs that the
+# allocator hands back filled with junk.
+ROW_CASES = [
+    ("rmat, K 8, tiles of 128", "rmat", 8, 128, False),
+    ("one tile", (50, 128), 8, 128, False),
+    ("K 4, tiles of 256", (3000, 256 * 37), 4, 256, False),
+    ("K 16, tiles of 128", (2000, 128 * 9), 16, 128, False),
+    ("K 16, tiles of 512", (3000, 512 * 11), 16, 512, False),
+    ("K 8, tiles of 512", (5000, 512 * 13), 8, 512, False),
+    ("misaligned views", (3000, 128 * 20), 8, 128, True),
+]
+ROW_SENTINELS = (12345, 0.5)
+
+
+def row_pack(torch, repro_torch, pack, K, scale):
+    """(n, ell_src, ell_w, row2dst) of a case on the card.  A random pack
+    fills each row's first c ~ U[0, K] slots (c = 0: a vacant row, at the
+    end with row2dst n, as a real pack keeps them) and pads the rest with
+    src n, w 0."""
+    import numpy as np
+    if pack == "rmat":
+        from repro_torch.kernels.ell import pack_ell
+        n, edges, w = repro_torch.rmat_graph(scale, DEGREE, seed=5)
+        g = repro_torch.graph.from_csr(repro_torch.build_csr(
+            n, edges, w, device=DEV), 4)
+        ell = pack_ell(g, k=K)
+        return n, ell.ell_src, ell.ell_w, ell.row2dst
+    n, R = pack
+    rng = np.random.default_rng(n + R + K)
+    fill = np.sort(rng.integers(0, K + 1, R))[::-1]
+    live = np.arange(K)[None, :] < fill[:, None]
+    src = np.where(live, rng.integers(0, n, (R, K)), n).astype(np.int32)
+    w = np.where(live, rng.integers(1, 50, (R, K)), 0).astype(np.int32)
+    r2d = np.where(fill > 0, np.sort(rng.integers(0, n, R)), n)
+    return n, *(torch.from_numpy(x.astype(np.int32)).to(DEV)
+                for x in (src, w, r2d))
+
+
+def row_vals(torch, n, seed):
+    """int vals (30% unreached) and float vals (20% zero), each with the
+    non-identity sentinel of ROW_SENTINELS at slot n."""
+    import numpy as np
+    from repro_torch.graph.csr import INF_W
+    rng = np.random.default_rng(seed)
+    v = rng.integers(0, 1000, n + 1).astype(np.int32)
+    v[:n][rng.random(n) < 0.3] = INF_W
+    f = (rng.random(n + 1) / n).astype(np.float32)
+    f[:n][rng.random(n) < 0.2] = 0.0
+    v[n], f[n] = ROW_SENTINELS
+    return (torch.from_numpy(v).to(DEV), torch.from_numpy(f).to(DEV))
+
+
+def junk_outputs(torch, R, tiles):
+    """Free tensors of the row kernels' output sizes filled with junk, so
+    that the next launch's outputs start as junk, not as an earlier
+    launch's right answer."""
+    for shape in ((R,), (R,), (R,), (tiles,)):
+        torch.full(shape, -7, dtype=torch.int32, device=DEV)
+
+
+def check_rows(torch, repro_torch, FK, scale=16) -> list:
+    """ROW_CASES through both fused row kernels against their plain
+    versions; raises on any difference.  Returns a line a case."""
+    lines = []
+    for name, pack, K, block, misaligned in ROW_CASES:
+        n, src, w, r2d = row_pack(torch, repro_torch, pack, K, scale)
+        R = src.shape[0]
+        bt = FK._row_block("fused_relax_rows", R, block)
+        if misaligned:
+            def view(x):
+                buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=DEV)
+                return buf[1:].view(x.shape).copy_(x)
+            src, w, r2d = view(src), view(w), view(r2d)
+        for seed in (1, 2):
+            vals, fvals = row_vals(torch, n, seed + K)
+            for kname, fn, plain in (
+                    ("fused_relax_rows",
+                     lambda: FK.fused_relax_rows(src, w, vals, block=bt),
+                     lambda: FK.fused_relax_rows_plain(src, w, vals, bt)),
+                    ("fused_spmv_rows",
+                     lambda: FK.fused_spmv_rows(src, r2d, fvals, block=bt),
+                     lambda: FK.fused_spmv_rows_plain(src, r2d, fvals, bt))):
+                junk_outputs(torch, R, R // bt)
+                got = fn()
+                try:
+                    max_abs_err(torch, got, plain())
+                except AssertionError as exc:
+                    raise AssertionError(f"{kname}, {name}: {exc}") \
+                        from None
+        lines.append(f"{name}: n={n} R={R} K={K} tile {bt}, "
+                     f"{R // bt} tiles, bit-exact on 2 draws")
+    return lines
+
+
+def warp_loaded(FK, rec, ell_src, ell_w=None) -> None:
+    """A fused row kernel must take its warp-loaded path (K = 8, aligned
+    slots) at the main path's shapes; its record names the path."""
+    if not FK.warp_loads(ell_src, ell_w):
+        raise AssertionError(f"{rec['name']}: the main path's slots do not "
+                             f"take the warp-loaded path")
+    rec["variant"] = "warp-loaded slots, smallest shared-memory carveout"
 
 
 class Launches:
@@ -755,6 +869,7 @@ def main(argv=None) -> int:
                                           cfg.row_block),
         nbytes(ell.ell_src, ell.ell_w, vals), 3 * R * K,
         R=R, K=K, n=n, block=cfg.row_block))
+    warp_loaded(FK, kernels[-1], ell.ell_src, ell.ell_w)
 
     rng = np.random.default_rng(2)
     pool = (g.d_src, g.d_dst, g.d_w, g.d_alive)
@@ -818,6 +933,9 @@ def main(argv=None) -> int:
         nbytes(ell.ell_src, ell.row2dst, fvals), R * K,
         library=lambda: emb(ell.ell_src, fvals[:, None], mode="sum"),
         R=R, K=K, n=n, block=cfg.row_block))
+    warp_loaded(FK, kernels[-1], ell.ell_src)
+    for line in check_rows(torch, repro_torch, FK):
+        log(f"[rows] {line}")
     # the vertex combine after it: the deterministic float segment sum of
     # each vertex's rows (one thread per vertex; the reference leaves it
     # to XLA's segment_sum, no Pallas kernel)

@@ -15,12 +15,18 @@
 //   `rows` (sentinel R after the block's count), counts[block] = count.
 //   Bound: device-memory bytes.  Each row streams 2·K·4 bytes of slots
 //   and writes 12 bytes; the K gathers of vals[src] (16 MB at n = 4M)
-//   mostly hit the 50 MB L2.  Design: one thread per row, so a warp reads
-//   32 consecutive rows; for K = 8 each thread loads its row's src and w
-//   as two 16-byte loads each, and gathers through the read-only path
-//   (__ldg).  The TPU kernel's in-tile cumsum becomes a block-wide
-//   exclusive scan of the hit flags from warp ballots and popc, so the
-//   compaction costs no extra pass over memory.
+//   mostly hit the 50 MB L2.  The gathers set the pace: one 32-byte
+//   sector and one L1 lookup for each 4 bytes, and they hit L1 often
+//   enough that L1's size counts.  Design: one thread per row, so a warp
+//   owns 32 consecutive rows, gathering through the read-only path
+//   (__ldg).  For K = 8 with 16-byte aligned slots the warp loads its
+//   rows' 1 KB of src (and of w) as 64 consecutive 16-byte loads, every
+//   sector used whole, and 8 shuffles hand each thread its row
+//   (warp_load_row8); other K and misaligned views load slot by slot.
+//   The launch asks for the smallest shared-memory carveout, so L1 is as
+//   large as the blocks allow.  The TPU kernel's in-tile cumsum becomes
+//   a block-wide exclusive scan of the hit flags from warp ballots and
+//   popc, so the compaction costs no extra pass over memory.
 //
 // fused_spmv_rows
 //   Replaces: src/repro/kernels/pallas_repair.py fused_spmv_rows
@@ -32,8 +38,9 @@
 //   and the hit row ids compacted per block as in fused_relax_rows.
 //   Bound: device-memory bytes (K·4 bytes of slots and 4 of row2dst in,
 //   8 out per row; the gathers mostly hit L2).  Design: the relax
-//   kernel's — one thread per row, 16-byte slot loads, __ldg gathers,
-//   the same ballot/popc block scan.
+//   kernel's — one thread per row, the warp's slots loaded whole and
+//   shuffled to their rows for K = 8, __ldg gathers, the smallest
+//   carveout, the same ballot/popc block scan.
 //
 // merge_pool_sorted
 //   Replaces: src/repro/kernels/pallas_repair.py merge_pool_sorted
@@ -53,6 +60,33 @@
 #include "ell_row.cuh"
 
 namespace {
+
+// The 8 slots of row r into x[0..8), loaded by the whole warp, whose 32
+// rows must all exist.  The warp's rows are 64 consecutive int4, row m
+// being int4 2m and 2m + 1; lane l loads int4 l into a and int4
+// 32 + (l ^ 1) into b, two fully used 512-byte requests.  Row m < 16 then
+// sits in a of lanes 2m and 2m + 1, row m >= 16 in b of lanes 2m - 31 and
+// 2m - 32: for a row's first half even lanes offer a and odd lanes b,
+// for its second half the reverse, so each of the 8 shuffles reads every
+// lane once.
+__device__ __forceinline__ void warp_load_row8(const int* __restrict__ p,
+                                               long long r, int* x) {
+  const int lane = threadIdx.x & 31;
+  const int4* q = reinterpret_cast<const int4*>(p + (r - lane) * 8);
+  const int4 a = __ldg(q + lane);
+  const int4 b = __ldg(q + 32 + (lane ^ 1));
+  const bool odd = lane & 1;
+  const int4 s0 = odd ? b : a, s1 = odd ? a : b;
+  const int j0 = ((2 * lane) & 31) | (lane >> 4), j1 = j0 ^ 1;
+  x[0] = __shfl_sync(0xffffffffu, s0.x, j0);
+  x[1] = __shfl_sync(0xffffffffu, s0.y, j0);
+  x[2] = __shfl_sync(0xffffffffu, s0.z, j0);
+  x[3] = __shfl_sync(0xffffffffu, s0.w, j0);
+  x[4] = __shfl_sync(0xffffffffu, s1.x, j1);
+  x[5] = __shfl_sync(0xffffffffu, s1.y, j1);
+  x[6] = __shfl_sync(0xffffffffu, s1.z, j1);
+  x[7] = __shfl_sync(0xffffffffu, s1.w, j1);
+}
 
 // One slot of a row's relax: the row min so far, the least source reaching
 // it, and how many slots reach it.  A row where some slot misses the min
@@ -108,7 +142,8 @@ __device__ __forceinline__ void compact_block(bool hit, long long r,
   if (tid == 0) counts[blockIdx.x] = total;
 }
 
-// VEC8: K == 8 with 16-byte aligned rows, loaded as int4 pairs.
+// VEC8: K == 8 with 16-byte aligned rows and whole warps of rows, loaded
+// by warp_load_row8.
 template <bool VEC8>
 __global__ void fused_relax_rows_kernel(const int* __restrict__ ell_src,
                                         const int* __restrict__ ell_w,
@@ -126,8 +161,8 @@ __global__ void fused_relax_rows_kernel(const int* __restrict__ ell_src,
     int rmin, rarg, reach = 1;
     if (VEC8) {
       int s[8], w[8];
-      load_row<true>(ell_src, r, 8, s);
-      load_row<true>(ell_w, r, 8, w);
+      warp_load_row8(ell_src, r, s);
+      warp_load_row8(ell_w, r, w);
       rmin = wrap_add(gather(vals, s[0], n + 1), w[0]);
       rarg = s[0];
 #pragma unroll
@@ -150,7 +185,7 @@ __global__ void fused_relax_rows_kernel(const int* __restrict__ ell_src,
   compact_block(hit, r, base, R, warp_tot, rows, counts);
 }
 
-// VEC8: K == 8 with 16-byte aligned rows, loaded as int4 pairs.
+// VEC8: as fused_relax_rows_kernel's.
 template <bool VEC8>
 __global__ void fused_spmv_rows_kernel(const int* __restrict__ ell_src,
                                        const int* __restrict__ row2dst,
@@ -167,7 +202,7 @@ __global__ void fused_spmv_rows_kernel(const int* __restrict__ ell_src,
     float acc;
     if (VEC8) {
       int s[8];
-      load_row<true>(ell_src, r, 8, s);
+      warp_load_row8(ell_src, r, s);
       acc = gather(vals, s[0], n + 1);
 #pragma unroll
       for (int k = 1; k < 8; ++k)
@@ -223,6 +258,15 @@ __global__ void merge_pool_sorted_kernel(
   oa[j] = take_f ? fa[as] : (p_ok ? pa[qi] : (uint8_t)0);
 }
 
+// Ask for as little shared memory as the blocks need (a hint): the rest of
+// the SM's 256 KB is L1, where the row kernels' gathers of vals hit.  An
+// error shows in the entry point's cudaGetLastError().
+template <typename Kernel>
+void prefer_l1(Kernel* kernel) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       0);
+}
+
 }  // namespace
 
 extern "C" int repro_fused_relax_rows(const void* ell_src, const void* ell_w,
@@ -233,14 +277,17 @@ extern "C" int repro_fused_relax_rows(const void* ell_src, const void* ell_w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int grid = (R + block - 1) / block;
   const size_t smem = (size_t)(block / 32) * sizeof(int);
-  const bool vec8 = K == 8 && ((uintptr_t)ell_src % 16 == 0) &&
+  const bool vec8 = K == 8 && R % 32 == 0 && block % 32 == 0 &&
+                    ((uintptr_t)ell_src % 16 == 0) &&
                     ((uintptr_t)ell_w % 16 == 0);
   if (grid > 0) {
     if (vec8) {
+      prefer_l1(fused_relax_rows_kernel<true>);
       fused_relax_rows_kernel<true><<<grid, block, smem, s>>>(
           (const int*)ell_src, (const int*)ell_w, (const int*)vals,
           (int*)row_min, (int*)row_arg, (int*)rows, (int*)counts, R, K, n);
     } else {
+      prefer_l1(fused_relax_rows_kernel<false>);
       fused_relax_rows_kernel<false><<<grid, block, smem, s>>>(
           (const int*)ell_src, (const int*)ell_w, (const int*)vals,
           (int*)row_min, (int*)row_arg, (int*)rows, (int*)counts, R, K, n);
@@ -257,13 +304,16 @@ extern "C" int repro_fused_spmv_rows(const void* ell_src,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int grid = (R + block - 1) / block;
   const size_t smem = (size_t)(block / 32) * sizeof(int);
-  const bool vec8 = K == 8 && ((uintptr_t)ell_src % 16 == 0);
+  const bool vec8 = K == 8 && R % 32 == 0 && block % 32 == 0 &&
+                    ((uintptr_t)ell_src % 16 == 0);
   if (grid > 0) {
     if (vec8) {
+      prefer_l1(fused_spmv_rows_kernel<true>);
       fused_spmv_rows_kernel<true><<<grid, block, smem, s>>>(
           (const int*)ell_src, (const int*)row2dst, (const float*)vals,
           (float*)row_sum, (int*)rows, (int*)counts, R, K, n);
     } else {
+      prefer_l1(fused_spmv_rows_kernel<false>);
       fused_spmv_rows_kernel<false><<<grid, block, smem, s>>>(
           (const int*)ell_src, (const int*)row2dst, (const float*)vals,
           (float*)row_sum, (int*)rows, (int*)counts, R, K, n);

@@ -69,6 +69,16 @@ def _row_block(name: str, R: int, block: int) -> int:
     return bt
 
 
+def warp_loads(ell_src, ell_w=None) -> bool:
+    """Whether the fused row kernels take their warp-loaded path for these
+    slots (``ell_w`` for relax; spmv streams ``ell_src`` only): K = 8 and
+    16-byte aligned arrays, the test the C entry points make (the
+    wrappers' tiles are whole warps that divide R).  Other launches load
+    and gather slot by slot."""
+    return ell_src.shape[1] == 8 and all(
+        x.data_ptr() % 16 == 0 for x in (ell_src, ell_w) if x is not None)
+
+
 def _compact_rows(hit: torch.Tensor, R: int, bt: int):
     """The in-block compaction of both fused kernels: the ids of hit rows
     packed to the front of each block of ``bt`` rows (sentinel R after the

@@ -246,6 +246,86 @@ def test_row_kernels_gather_out_of_range_sources_as_jax(dev, k):
         assert_same(launched(counts, name, kernel), plain(), name)
 
 
+def row_pack(dev, n, R, K, seed):
+    """A random pack of R rows: row r's first c_r ~ U[0, K] slots live,
+    the rest padding (src n, w 0); rows with c_r = 0 are vacant and sit
+    at the end with row2dst n, as a real pack keeps them."""
+    rng = np.random.default_rng(seed)
+    fill = np.sort(rng.integers(0, K + 1, R))[::-1]
+    live = np.arange(K)[None, :] < fill[:, None]
+    src = np.where(live, rng.integers(0, n, (R, K)), n)
+    w = np.where(live, rng.integers(1, 50, (R, K)), 0)
+    r2d = np.where(fill > 0, np.sort(rng.integers(0, n, R)), n)
+    return tuple(torch.from_numpy(x.astype(np.int32)).to(dev)
+                 for x in (src, w, r2d))
+
+
+def sentinel_vals(dev, n, seed):
+    """int vals (30% unreached) and float vals, each with a sentinel at
+    slot n that is no identity (12345, 0.5): a padding slot dropped
+    rather than given vals[n] changes the result."""
+    rng = np.random.default_rng(seed)
+    v = rng.integers(0, 1000, n + 1).astype(np.int32)
+    v[:n][rng.random(n) < 0.3] = INF_W
+    f = (rng.random(n + 1) / n).astype(np.float32)
+    v[n], f[n] = 12345, 0.5
+    return torch.from_numpy(v).to(dev), torch.from_numpy(f).to(dev)
+
+
+def assert_row_kernels(dev, src, w, r2d, n, bt, seed=0):
+    """Both fused row kernels on the card, one launch each, against their
+    plain versions bit for bit, with sentinel vals."""
+    vals, fvals = sentinel_vals(dev, n, seed)
+    for name, side, v, fn, plain in (
+            ("fused_relax_rows", w, vals, TK.fused_relax_rows,
+             TK.fused_relax_rows_plain),
+            ("fused_spmv_rows", r2d, fvals, TK.fused_spmv_rows,
+             TK.fused_spmv_rows_plain)):
+        got = launched(TK.LAUNCHES, name, lambda: fn(src, side, v, block=bt))
+        assert_same(got, plain(src, side, v, bt), name)
+
+
+@pytest.mark.parametrize("bt", [128, 256, 512])
+@pytest.mark.parametrize("K", [4, 8, 16])
+def test_row_kernels_match_plain_with_padding_sentinels(dev, bt, K):
+    """Every tile size the config picks and K of 4, 8 and 16, on a pack
+    with padding slots and vacant rows and vals[n] no identity."""
+    src, w, r2d = row_pack(dev, 5000, bt * 97, K, seed=bt + K)
+    assert_row_kernels(dev, src, w, r2d, 5000, bt, seed=K)
+
+
+@pytest.mark.parametrize("K", [4, 8])
+def test_row_kernels_on_one_tile(dev, K):
+    """R = bt: a single tile, a single block."""
+    src, w, r2d = row_pack(dev, 50, 128, K, seed=K)
+    assert_row_kernels(dev, src, w, r2d, 50, 128, seed=K)
+
+
+def test_row_kernels_on_an_rmat_pack(dev):
+    """An RMAT graph's pack (hub sources in many rows, vacant rows at the
+    end), bit for bit."""
+    n, edges, w = repro_torch.rmat_graph(14, 16, seed=3)
+    g = repro_torch.graph.from_csr(repro_torch.build_csr(n, edges, w,
+                                                         device=dev), 64)
+    ell = pack_ell(g, k=8)
+    assert bool((ell.row2dst == n).any())
+    assert_row_kernels(dev, ell.ell_src, ell.ell_w, ell.row2dst, n, 128,
+                       seed=14)
+
+
+def test_row_kernels_on_misaligned_views(dev):
+    """ell_src, ell_w and row2dst as views 4 bytes into a buffer: the
+    kernels take no 16-byte loads of them and still equal the plain
+    versions."""
+    def view(x):
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+        return buf[1:].view(x.shape).copy_(x)
+
+    src, w, r2d = (view(x) for x in row_pack(dev, 3000, 128 * 20, 8, 7))
+    assert src.data_ptr() % 16 == 4
+    assert_row_kernels(dev, src, w, r2d, 3000, 128, seed=7)
+
+
 @pytest.mark.parametrize("backend", ["cuda", "cuda_chained"])
 def test_admission_off_bad_ids_on_card_match_cpu_run(dev, backend):
     """With admission="off", ids past n, equal to n and negative reach the
