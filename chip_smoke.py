@@ -33,11 +33,12 @@ Phases (any failure exits non-zero):
    fixed order), with their times beside the bound (bytes each input read
    once and each output written once, over 3.35 TB/s, or operations over
    the float32 peak, whichever is larger) and a one-call PyTorch
-   yardstick where one exists.  ``fused_relax_rows`` and
-   ``fused_spmv_rows`` must take their warp-loaded path at these shapes
-   (their records name it), and also run ``ROW_CASES`` (tiles of 128 to
-   512, K 4 to 16, one tile, an RMAT pack, misaligned views), bit for
-   bit.
+   yardstick where one exists.  ``fused_relax_rows``,
+   ``fused_spmv_rows``, ``spmv_rowsum`` and ``relax_rowargmin`` must take
+   their warp-loaded path at these shapes (their records name it), and
+   the five row kernels also run ``ROW_CASES`` (tiles of 128 to 512, K 4
+   to 16, one tile, an RMAT pack, misaligned views, and for the chained
+   kernels an R that is no multiple of 32), bit for bit.
 4. Correctness of the runs: SSSP ``dist``, ``parent`` and every DynGraph
    array equal the ``torch`` backend's, ``cuda_chained``'s dist and parent
    equal ``cuda``'s, and dist equals scipy's Dijkstra over the
@@ -77,6 +78,7 @@ The last two lines are the kernels' JSON record and the device record.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -151,6 +153,11 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def outputs(x) -> tuple:
+    """A kernel's outputs as a tuple (the chained kernels return one)."""
+    return x if isinstance(x, tuple) else (x,)
+
+
 def max_abs_err(torch, got, want) -> float:
     """The largest |got - want| over the outputs; raises unless every
     output is bit-identical (same shape, dtype and bits)."""
@@ -179,9 +186,7 @@ def check_kernel(torch, args, flush, name, source, replaces, launches, fn,
     """Hold a kernel against its plain version on the same inputs (bit for
     bit), then time both and the library yardstick (the plain version over
     ``plain_reps`` launches where it is too slow for ``--reps``)."""
-    got, want = fn(), plain()
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
+    got, want = outputs(fn()), outputs(plain())
     torch.cuda.synchronize()
     try:
         err = max_abs_err(torch, got, want)
@@ -203,15 +208,18 @@ def check_kernel(torch, args, flush, name, source, replaces, launches, fn,
     return rec
 
 
-# The two fused row kernels against their plain versions, bit for bit, on
+# The five row kernels (the two fused ones of repair.cu, the three chained
+# ones of csr_relax.cu) against their plain versions, bit for bit, on
 # packs the main path does not reach: name, pack (an RMAT graph's, skewed
 # with hub sources and vacant rows, or (n, R) of a random pack), K, tile
-# rows, and whether ell_src and the side array are views 4 bytes into a
-# buffer (the kernels then load slot by slot; aligned K = 8 packs take the
-# warp-loaded path).  vals[n] is a sentinel that is no identity (12345,
-# 0.5), so a padding slot dropped instead of taking vals[n] shows; every
-# case runs on two draws of vals, each launch into outputs that the
-# allocator hands back filled with junk.
+# rows (None: R is no multiple of 32, which the fused kernels' tiles
+# refuse, so only the chained kernels run, on their slot-by-slot path),
+# and whether ell_src and the side array are views 4 bytes into a buffer
+# (the kernels then load slot by slot; aligned K = 8 packs with whole
+# warps of rows take the warp-loaded path).  vals[n] is a sentinel that
+# is no identity (12345, 0.5), so a padding slot dropped instead of
+# taking vals[n] shows; every case runs on two draws of vals, each launch
+# into outputs filled with junk (junk_outputs).
 ROW_CASES = [
     ("rmat, K 8, tiles of 128", "rmat", 8, 128, False),
     ("one tile", (50, 128), 8, 128, False),
@@ -220,8 +228,11 @@ ROW_CASES = [
     ("K 16, tiles of 512", (3000, 512 * 11), 16, 512, False),
     ("K 8, tiles of 512", (5000, 512 * 13), 8, 512, False),
     ("misaligned views", (3000, 128 * 20), 8, 128, True),
+    ("K 8, R no multiple of 32", (3000, 256 * 10 + 13), 8, None, False),
 ]
 ROW_SENTINELS = (12345, 0.5)
+ROW_KERNELS = ("fused_relax_rows", "fused_spmv_rows", "relax_rowmin",
+               "spmv_rowsum", "relax_rowargmin")
 
 
 def row_pack(torch, repro_torch, pack, K, scale):
@@ -262,22 +273,66 @@ def row_vals(torch, n, seed):
     return (torch.from_numpy(v).to(DEV), torch.from_numpy(f).to(DEV))
 
 
-def junk_outputs(torch, R, tiles):
-    """Free tensors of the row kernels' output sizes filled with junk, so
-    that the next launch's outputs start as junk, not as an earlier
-    launch's right answer."""
-    for shape in ((R,), (R,), (R,), (tiles,)):
-        torch.full(shape, -7, dtype=torch.int32, device=DEV)
+@contextlib.contextmanager
+def junk_outputs(torch):
+    """Inside the block ``torch.empty`` (with which the kernel wrappers
+    allocate their outputs) hands out tensors filled with -7, so an output
+    that a launch leaves unwritten shows as junk, not as an earlier
+    launch's right answer in reused memory."""
+    empty = torch.empty
+    torch.empty = lambda *a, **k: empty(*a, **k).fill_(-7)
+    try:
+        yield
+    finally:
+        torch.empty = empty
 
 
-def check_rows(torch, repro_torch, FK, scale=16) -> list:
-    """ROW_CASES through both fused row kernels against their plain
-    versions; raises on any difference.  Returns a line a case."""
-    lines = []
+class RowMismatch(AssertionError):
+    """Row kernels that differ from their plain versions; ``failed`` maps
+    each to its first difference."""
+
+    def __init__(self, failed: dict):
+        super().__init__("; ".join(f"{k}, {v}" for k, v in failed.items()))
+        self.failed = failed
+
+
+def row_launches(torch, FK, CK, src, w, r2d, n, bt, vals, fvals) -> dict:
+    """{name: (kernel, plain)} of the row kernels on one pack, the fused
+    ones only where ``bt`` tiles it.  relax_rowargmin's targets are the
+    row minima, plus one on every third row, so some rows reach them and
+    others miss."""
+    rmin = CK.relax_rowmin_plain(src, w, vals)
+    tgt = torch.where(torch.arange(src.shape[0], device=DEV) % 3 == 0,
+                      rmin + 1, rmin)
+    out = {
+        "relax_rowmin": (lambda: CK.relax_rowmin(src, w, vals),
+                         lambda: rmin),
+        "spmv_rowsum": (lambda: CK.spmv_rowsum(src, fvals),
+                        lambda: CK.spmv_rowsum_plain(src, fvals)),
+        "relax_rowargmin": (
+            lambda: CK.relax_rowargmin(src, w, vals, tgt, n=n),
+            lambda: CK.relax_rowargmin_plain(src, w, vals, tgt, n)),
+    }
+    if bt is not None:
+        out["fused_relax_rows"] = (
+            lambda: FK.fused_relax_rows(src, w, vals, block=bt),
+            lambda: FK.fused_relax_rows_plain(src, w, vals, bt))
+        out["fused_spmv_rows"] = (
+            lambda: FK.fused_spmv_rows(src, r2d, fvals, block=bt),
+            lambda: FK.fused_spmv_rows_plain(src, r2d, fvals, bt))
+    return out
+
+
+def check_rows(torch, repro_torch, FK, CK, scale=16,
+               kernels=ROW_KERNELS) -> list:
+    """ROW_CASES through the row kernels in ``kernels`` against their
+    plain versions; raises RowMismatch naming every kernel that differs.
+    Returns a line a case."""
+    lines, failed = [], {}
     for name, pack, K, block, misaligned in ROW_CASES:
         n, src, w, r2d = row_pack(torch, repro_torch, pack, K, scale)
         R = src.shape[0]
-        bt = FK._row_block("fused_relax_rows", R, block)
+        bt = block and FK._row_block("fused_relax_rows", R, block)
         if misaligned:
             def view(x):
                 buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=DEV)
@@ -285,29 +340,32 @@ def check_rows(torch, repro_torch, FK, scale=16) -> list:
             src, w, r2d = view(src), view(w), view(r2d)
         for seed in (1, 2):
             vals, fvals = row_vals(torch, n, seed + K)
-            for kname, fn, plain in (
-                    ("fused_relax_rows",
-                     lambda: FK.fused_relax_rows(src, w, vals, block=bt),
-                     lambda: FK.fused_relax_rows_plain(src, w, vals, bt)),
-                    ("fused_spmv_rows",
-                     lambda: FK.fused_spmv_rows(src, r2d, fvals, block=bt),
-                     lambda: FK.fused_spmv_rows_plain(src, r2d, fvals, bt))):
-                junk_outputs(torch, R, R // bt)
-                got = fn()
+            launches = row_launches(torch, FK, CK, src, w, r2d, n, bt, vals,
+                                    fvals)
+            ran = [k for k in kernels if k in launches]
+            for kname in ran:
+                if kname in failed:
+                    continue
+                fn, plain = launches[kname]
+                with junk_outputs(torch):
+                    got = fn()
                 try:
-                    max_abs_err(torch, got, plain())
+                    max_abs_err(torch, outputs(got), outputs(plain()))
                 except AssertionError as exc:
-                    raise AssertionError(f"{kname}, {name}: {exc}") \
-                        from None
-        lines.append(f"{name}: n={n} R={R} K={K} tile {bt}, "
-                     f"{R // bt} tiles, bit-exact on 2 draws")
+                    failed[kname] = f"{name}: {exc}"
+        tiles = f"tile {bt}, {R // bt} tiles" if bt else "no tile"
+        lines.append(f"{name}: n={n} R={R} K={K} {tiles}, "
+                     f"{', '.join(ran)} bit-exact on 2 draws")
+    if failed:
+        raise RowMismatch(failed)
     return lines
 
 
-def warp_loaded(FK, rec, ell_src, ell_w=None) -> None:
-    """A fused row kernel must take its warp-loaded path (K = 8, aligned
-    slots) at the main path's shapes; its record names the path."""
-    if not FK.warp_loads(ell_src, ell_w):
+def warp_loaded(mod, rec, ell_src, ell_w=None) -> None:
+    """A row kernel with a warp-loaded path (the fused ones of ``FK``,
+    spmv_rowsum and relax_rowargmin of ``CK``) must take it at the main
+    path's shapes; its record names the path."""
+    if not mod.warp_loads(ell_src, ell_w):
         raise AssertionError(f"{rec['name']}: the main path's slots do not "
                              f"take the warp-loaded path")
     rec["variant"] = "warp-loaded slots, smallest shared-memory carveout"
@@ -934,7 +992,7 @@ def main(argv=None) -> int:
         library=lambda: emb(ell.ell_src, fvals[:, None], mode="sum"),
         R=R, K=K, n=n, block=cfg.row_block))
     warp_loaded(FK, kernels[-1], ell.ell_src)
-    for line in check_rows(torch, repro_torch, FK):
+    for line in check_rows(torch, repro_torch, FK, CK):
         log(f"[rows] {line}")
     # the vertex combine after it: the deterministic float segment sum of
     # each vertex's rows (one thread per vertex; the reference leaves it
@@ -993,6 +1051,7 @@ def main(argv=None) -> int:
                                          n),
         nbytes(ell.ell_src, ell.ell_w, vals, tgt), 3 * R * K,
         R=R, K=K, n=n))
+    warp_loaded(CK, kernels[-1], ell.ell_src, ell.ell_w)
     del c_sess, c_props, ell, vals, vmin, tgt, dist
     torch.cuda.empty_cache()
 
@@ -1018,6 +1077,7 @@ def main(argv=None) -> int:
         nbytes(ell.ell_src, fvals), R * K,
         library=lambda: emb(ell.ell_src, fvals[:, None], mode="sum"),
         R=R, K=K, n=n))
+    warp_loaded(CK, kernels[-1], ell.ell_src)
     del p_sess, p_props, ell, fvals
     del flush
     torch.cuda.empty_cache()

@@ -18,10 +18,19 @@
 // Bound: device-memory bytes.  A row streams K·4 bytes of sources (and
 // K·4 of weights for the two relax kernels), reads 4 bytes of target
 // (argmin) and writes 4; the K gathers of vals (16 MB at n = 4M) mostly
-// hit the 50 MB L2.  The TPU kernels keep vals resident in VMEM and walk
-// 128-row tiles in order; here one thread takes one row, so a warp reads
-// 32 consecutive rows, loads a K = 8 row as two 16-byte loads, and
-// gathers vals through the read-only path (__ldg).
+// hit the 50 MB L2.  What sets the pace is the gathers: each reads a
+// 32-byte sector for 4 bytes, and they hit L1 often enough that L1's size
+// counts.  The TPU kernels keep vals resident in VMEM and walk 128-row
+// tiles in order; here one thread takes one row, so a warp reads 32
+// consecutive rows, and gathers vals through the read-only path (__ldg).
+// spmv_rowsum and relax_rowargmin load a K = 8 row, when the warp's 32
+// rows all exist and are 16-byte aligned, with the whole warp
+// (ell_row.cuh: warp_load_row8: fully used 512-byte requests, 8
+// shuffles), and ask for the smallest shared-memory carveout (prefer_l1),
+// so L1 is left to the gathers (these blocks use no shared memory, and at
+// the main path's shape the CUDA driver's own choice timed the same);
+// relax_rowmin loads its row as two 16-byte loads a thread and leaves the
+// carveout to the CUDA driver.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,23 +58,28 @@ __global__ void relax_rowmin_kernel(const int* __restrict__ ell_src,
   out[r] = m;
 }
 
-template <bool VEC8>
+// WARP8: K == 8, R % 32 == 0 and 16-byte aligned slots, loaded by
+// warp_load_row8.  A warp's rows then all exist or none does, so the
+// early return leaves whole warps to the shuffles.
+template <bool WARP8>
 __global__ void spmv_rowsum_kernel(const int* __restrict__ ell_src,
                                    const float* __restrict__ vals,
                                    float* __restrict__ out, int R, int K,
                                    int L) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
-  const int kk = VEC8 ? 8 : K;
+  const int kk = WARP8 ? 8 : K;
   int s[32];
-  load_row<VEC8>(ell_src, r, kk, s);
+  if (WARP8) warp_load_row8(ell_src, r, s);
+  else load_row<false>(ell_src, r, kk, s);
   float acc = gather(vals, s[0], L);
 #pragma unroll 8
   for (int k = 1; k < kk; ++k) acc = __fadd_rn(acc, gather(vals, s[k], L));
   out[r] = acc;
 }
 
-template <bool VEC8>
+// WARP8: as spmv_rowsum_kernel's, for ell_src and ell_w.
+template <bool WARP8>
 __global__ void relax_rowargmin_kernel(const int* __restrict__ ell_src,
                                        const int* __restrict__ ell_w,
                                        const int* __restrict__ vals,
@@ -74,10 +88,15 @@ __global__ void relax_rowargmin_kernel(const int* __restrict__ ell_src,
                                        int n, int L) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
-  const int kk = VEC8 ? 8 : K;
+  const int kk = WARP8 ? 8 : K;
   int s[32], w[32];
-  load_row<VEC8>(ell_src, r, kk, s);
-  load_row<VEC8>(ell_w, r, kk, w);
+  if (WARP8) {
+    warp_load_row8(ell_src, r, s);
+    warp_load_row8(ell_w, r, w);
+  } else {
+    load_row<false>(ell_src, r, kk, s);
+    load_row<false>(ell_w, r, kk, w);
+  }
   const int t = __ldg(row_targets + r);
   // min(where(cand == t, src, n)): n joins only when some slot misses
   int a = 0x7fffffff;
@@ -94,6 +113,13 @@ constexpr int kBlock = 256;
 
 bool vec8(int K, const void* a, const void* b) {
   return K == 8 && (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0;
+}
+
+// The warp-loaded path: vec8 and whole warps of rows (blocks of kBlock
+// rows are whole warps, so R % 32 == 0 makes every warp's rows all exist
+// or all not).  kernels/csr_relax.py: warp_loads repeats this test.
+bool warp8(int K, int R, const void* a, const void* b) {
+  return vec8(K, a, b) && R % 32 == 0;
 }
 
 }  // namespace
@@ -127,10 +153,12 @@ extern "C" int repro_spmv_rowsum(const void* ell_src, const void* vals,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = (R + kBlock - 1) / kBlock;
   if (grid > 0) {
-    if (vec8(K, ell_src, ell_src)) {
+    if (warp8(K, R, ell_src, ell_src)) {
+      prefer_l1(spmv_rowsum_kernel<true>);
       spmv_rowsum_kernel<true><<<grid, kBlock, 0, st>>>(
           (const int*)ell_src, (const float*)vals, (float*)out, R, K, L);
     } else {
+      prefer_l1(spmv_rowsum_kernel<false>);
       spmv_rowsum_kernel<false><<<grid, kBlock, 0, st>>>(
           (const int*)ell_src, (const float*)vals, (float*)out, R, K, L);
     }
@@ -147,11 +175,13 @@ extern "C" int repro_relax_rowargmin(const void* ell_src, const void* ell_w,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = (R + kBlock - 1) / kBlock;
   if (grid > 0) {
-    if (vec8(K, ell_src, ell_w)) {
+    if (warp8(K, R, ell_src, ell_w)) {
+      prefer_l1(relax_rowargmin_kernel<true>);
       relax_rowargmin_kernel<true><<<grid, kBlock, 0, st>>>(
           (const int*)ell_src, (const int*)ell_w, (const int*)vals,
           (const int*)row_targets, (int*)out, R, K, n, L);
     } else {
+      prefer_l1(relax_rowargmin_kernel<false>);
       relax_rowargmin_kernel<false><<<grid, kBlock, 0, st>>>(
           (const int*)ell_src, (const int*)ell_w, (const int*)vals,
           (const int*)row_targets, (int*)out, R, K, n, L);

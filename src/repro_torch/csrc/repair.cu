@@ -22,11 +22,12 @@
 //   (__ldg).  For K = 8 with 16-byte aligned slots the warp loads its
 //   rows' 1 KB of src (and of w) as 64 consecutive 16-byte loads, every
 //   sector used whole, and 8 shuffles hand each thread its row
-//   (warp_load_row8); other K and misaligned views load slot by slot.
-//   The launch asks for the smallest shared-memory carveout, so L1 is as
-//   large as the blocks allow.  The TPU kernel's in-tile cumsum becomes
-//   a block-wide exclusive scan of the hit flags from warp ballots and
-//   popc, so the compaction costs no extra pass over memory.
+//   (ell_row.cuh: warp_load_row8); other K and misaligned views load
+//   slot by slot.  The launch asks for the smallest shared-memory
+//   carveout (prefer_l1), so L1 is as large as the blocks allow.  The
+//   TPU kernel's in-tile cumsum becomes a block-wide exclusive scan of
+//   the hit flags from warp ballots and popc, so the compaction costs no
+//   extra pass over memory.
 //
 // fused_spmv_rows
 //   Replaces: src/repro/kernels/pallas_repair.py fused_spmv_rows
@@ -60,33 +61,6 @@
 #include "ell_row.cuh"
 
 namespace {
-
-// The 8 slots of row r into x[0..8), loaded by the whole warp, whose 32
-// rows must all exist.  The warp's rows are 64 consecutive int4, row m
-// being int4 2m and 2m + 1; lane l loads int4 l into a and int4
-// 32 + (l ^ 1) into b, two fully used 512-byte requests.  Row m < 16 then
-// sits in a of lanes 2m and 2m + 1, row m >= 16 in b of lanes 2m - 31 and
-// 2m - 32: for a row's first half even lanes offer a and odd lanes b,
-// for its second half the reverse, so each of the 8 shuffles reads every
-// lane once.
-__device__ __forceinline__ void warp_load_row8(const int* __restrict__ p,
-                                               long long r, int* x) {
-  const int lane = threadIdx.x & 31;
-  const int4* q = reinterpret_cast<const int4*>(p + (r - lane) * 8);
-  const int4 a = __ldg(q + lane);
-  const int4 b = __ldg(q + 32 + (lane ^ 1));
-  const bool odd = lane & 1;
-  const int4 s0 = odd ? b : a, s1 = odd ? a : b;
-  const int j0 = ((2 * lane) & 31) | (lane >> 4), j1 = j0 ^ 1;
-  x[0] = __shfl_sync(0xffffffffu, s0.x, j0);
-  x[1] = __shfl_sync(0xffffffffu, s0.y, j0);
-  x[2] = __shfl_sync(0xffffffffu, s0.z, j0);
-  x[3] = __shfl_sync(0xffffffffu, s0.w, j0);
-  x[4] = __shfl_sync(0xffffffffu, s1.x, j1);
-  x[5] = __shfl_sync(0xffffffffu, s1.y, j1);
-  x[6] = __shfl_sync(0xffffffffu, s1.z, j1);
-  x[7] = __shfl_sync(0xffffffffu, s1.w, j1);
-}
 
 // One slot of a row's relax: the row min so far, the least source reaching
 // it, and how many slots reach it.  A row where some slot misses the min
@@ -256,15 +230,6 @@ __global__ void merge_pool_sorted_kernel(
   od[j] = take_f ? f_d : (p_ok ? q_d : 0);
   ow[j] = take_f ? fw[as] : (p_ok ? pw[qi] : 0);
   oa[j] = take_f ? fa[as] : (p_ok ? pa[qi] : (uint8_t)0);
-}
-
-// Ask for as little shared memory as the blocks need (a hint): the rest of
-// the SM's 256 KB is L1, where the row kernels' gathers of vals hit.  An
-// error shows in the entry point's cudaGetLastError().
-template <typename Kernel>
-void prefer_l1(Kernel* kernel) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       0);
 }
 
 }  // namespace

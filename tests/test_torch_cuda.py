@@ -326,6 +326,63 @@ def test_row_kernels_on_misaligned_views(dev):
     assert_row_kernels(dev, src, w, r2d, 3000, 128, seed=7)
 
 
+def assert_chained_kernels(dev, src, w, n, seed=0):
+    """The three chained row kernels on the card, one launch each, against
+    their plain versions bit for bit, with sentinel vals; relax_rowargmin's
+    targets are the row minima, plus one on every third row, so some rows
+    reach them and others miss."""
+    vals, fvals = sentinel_vals(dev, n, seed)
+    rmin = TC.relax_rowmin_plain(src, w, vals)
+    tgt = torch.where(torch.arange(src.shape[0], device=dev) % 3 == 0,
+                      rmin + 1, rmin)
+    for name, fn, plain in (
+            ("relax_rowmin", lambda: TC.relax_rowmin(src, w, vals),
+             lambda: rmin),
+            ("spmv_rowsum", lambda: TC.spmv_rowsum(src, fvals),
+             lambda: TC.spmv_rowsum_plain(src, fvals)),
+            ("relax_rowargmin",
+             lambda: TC.relax_rowargmin(src, w, vals, tgt, n=n),
+             lambda: TC.relax_rowargmin_plain(src, w, vals, tgt, n))):
+        assert_same(launched(TC.LAUNCHES, name, fn), plain(), name)
+
+
+@pytest.mark.parametrize("R", [256 * 97, 256 * 10 + 13, 32 * 7 + 31, 64])
+@pytest.mark.parametrize("K", [4, 8, 16])
+def test_chained_row_kernels_match_plain_with_padding_sentinels(dev, R, K):
+    """K of 4, 8 and 16, R a multiple of 32 (for K = 8 the warp-loaded
+    path of spmv_rowsum and relax_rowargmin) or not (slot by slot, the
+    last block ragged), on a pack with padding slots and vacant rows and
+    vals[n] no identity."""
+    src, w, _ = row_pack(dev, 5000, R, K, seed=R + K)
+    assert TC.warp_loads(src, w) is (K == 8 and R % 32 == 0)
+    assert_chained_kernels(dev, src, w, 5000, seed=K)
+
+
+def test_chained_row_kernels_on_an_rmat_pack(dev):
+    """An RMAT graph's pack (hub sources in many rows, vacant rows at the
+    end) through the warp-loaded chained kernels, bit for bit."""
+    n, edges, w = repro_torch.rmat_graph(14, 16, seed=4)
+    g = repro_torch.graph.from_csr(repro_torch.build_csr(n, edges, w,
+                                                         device=dev), 64)
+    ell = pack_ell(g, k=8)
+    assert TC.warp_loads(ell.ell_src, ell.ell_w)
+    assert_chained_kernels(dev, ell.ell_src, ell.ell_w, n, seed=14)
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+def test_chained_row_kernels_on_misaligned_views(dev, offset):
+    """ell_src and ell_w as views 4 or 8 bytes into a buffer: no 16-byte
+    loads of them, and still the plain versions' outputs."""
+    def view(x):
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+        return buf[offset:].view(x.shape).copy_(x)
+
+    src, w = (view(x) for x in row_pack(dev, 3000, 256 * 20, 8, 9)[:2])
+    assert src.data_ptr() % 16 == 4 * offset
+    assert not TC.warp_loads(src) and not TC.warp_loads(src, w)
+    assert_chained_kernels(dev, src, w, 3000, seed=offset)
+
+
 @pytest.mark.parametrize("backend", ["cuda", "cuda_chained"])
 def test_admission_off_bad_ids_on_card_match_cpu_run(dev, backend):
     """With admission="off", ids past n, equal to n and negative reach the

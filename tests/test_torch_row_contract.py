@@ -1,11 +1,12 @@
-"""The fused row kernels' contract on the CPU, where the wrappers run
+"""The row kernels' contract on the CPU, where the wrappers run
 their plain versions (the CUDA kernels are held to those bit for bit on
 the card, tests/test_torch_cuda.py): against repro's Pallas kernels in
 interpret mode on packs with padding slots, vacant rows and a vals[n]
 that is no identity, and against a numpy statement of the contract (the
 left-to-right float sum, the row argmin's sentinel rule, the per-tile
 compaction).  Also the tile the wrappers choose, and which launches take
-the kernels' warp-loaded path.
+the kernels' warp-loaded path (the fused kernels', and the chained
+spmv_rowsum's and relax_rowargmin's).
 
 Integer outputs, the compacted rows and the counts are compared bit for
 bit; the float row sums agree with the Pallas kernel to rtol 1e-6 (XLA's
@@ -15,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import csr_relax as RC
 from repro.kernels import pallas_repair as RK
 from repro_torch.graph.csr import INF_W
+from repro_torch.kernels import csr_relax as TC
 from repro_torch.kernels import repair as TK
 from repro_torch.kernels.ell import ell_capacity
 
@@ -92,6 +95,28 @@ def test_spmv_rows_match_pallas_on_padded_packs(K, bt):
                                rtol=1e-6, atol=0)
     assert np.array_equal(rows.numpy(), np.asarray(want[1]))
     assert np.array_equal(counts.numpy(), np.asarray(want[2]))
+
+
+@pytest.mark.parametrize("K", [4, 8, 16])
+def test_chained_rows_match_pallas_on_padded_packs(K):
+    """The three chained row kernels on a pack with padding slots, vacant
+    rows and vals[n] no identity; relax_rowargmin's targets are reached on
+    some rows and missed on others."""
+    n, R = 700, 128 * 5
+    src, w, _ = padded_pack(n, R, K, seed=3 * K)
+    vals, fvals = sentinel_vals(n, seed=K + 2)
+    rmin = TC.relax_rowmin(t(src), t(w), t(vals))
+    assert np.array_equal(rmin.numpy(), np.asarray(RC.relax_rowmin(
+        jnp.asarray(src), jnp.asarray(w), jnp.asarray(vals))))
+    tgt = np.where(np.arange(R) % 3 == 0, rmin.numpy() + 1, rmin.numpy())
+    got = TC.relax_rowargmin(t(src), t(w), t(vals), t(tgt), n=n)
+    assert np.array_equal(got.numpy(), np.asarray(RC.relax_rowargmin(
+        jnp.asarray(src), jnp.asarray(w), jnp.asarray(vals),
+        jnp.asarray(tgt), n=n)))
+    np.testing.assert_allclose(
+        TC.spmv_rowsum(t(src), t(fvals)).numpy(),
+        np.asarray(RC.spmv_rowsum(jnp.asarray(src), jnp.asarray(fvals))),
+        rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("K", [4, 8])
@@ -222,6 +247,24 @@ def test_warp_loaded_path_by_K_and_alignment(K, src_off, w_off, relax, spmv):
     assert src.data_ptr() % 16 == (src_off * 4) % 16
     assert TK.warp_loads(src, w) is relax
     assert TK.warp_loads(src) is spmv
+
+
+@pytest.mark.parametrize("K,R,src_off,w_off,relax,spmv", [
+    (8, 256, 0, 0, True, True), (8, 96, 4, 0, True, True),
+    (8, 250, 0, 0, False, False), (8, 256 + 16, 0, 0, False, False),
+    (8, 256, 1, 0, False, False), (8, 256, 0, 1, False, True),
+    (8, 256, 2, 3, False, False), (4, 256, 0, 0, False, False),
+    (16, 256, 0, 0, False, False)])
+def test_chained_warp_loaded_path_by_K_R_and_alignment(K, R, src_off, w_off,
+                                                       relax, spmv):
+    """spmv_rowsum and relax_rowargmin take their warp-loaded path only for
+    K = 8, R a multiple of 32 (whole warps of rows, which the chained
+    kernels' any-R launches need before their shuffles) and 16-byte
+    aligned slots (ell_src, and ell_w for relax_rowargmin)."""
+    src = _view(torch.zeros((R, K), dtype=torch.int32), src_off)
+    w = _view(torch.zeros((R, K), dtype=torch.int32), w_off)
+    assert TC.warp_loads(src, w) is relax
+    assert TC.warp_loads(src) is spmv
 
 
 @pytest.mark.parametrize("offset", [1, 3])

@@ -1,32 +1,38 @@
 #!/usr/bin/env python3
-"""Copies of the fused row kernels (``fused_relax_rows`` and
-``fused_spmv_rows`` in ``src/repro_torch/csrc/repair.cu``) with one
-change each, built and run beside the real ones on an NVIDIA Hopper card.
+"""Copies of the row kernels (``fused_relax_rows`` and ``fused_spmv_rows``
+in ``src/repro_torch/csrc/repair.cu``; ``spmv_rowsum`` and
+``relax_rowargmin`` in ``csr_relax.cu``; all four load their slots
+through ``ell_row.cuh``) with one change each, built and run beside the
+real ones on an NVIDIA Hopper card.
 
     python3 tools/row_variants.py faults      # planted faults
     python3 tools/row_variants.py ablations   # other designs, timed
 
-Each variant is a text substitution in a copy of ``repair.cu`` (every
-substitution must match as often as it says, once by default).  The
-copies are built with ``nvcc`` in parallel with the source's own flags,
-and each is put in the wrappers' place in turn.
+Each variant is a list of text substitutions over the row sources
+(``SOURCES``: the two ``.cu`` files and the header they share; every
+substitution must match as often as it says across them, once by
+default).  Each copy's ``.cu`` files are built with ``nvcc`` in parallel
+with their own flags, against the copy's header, and its entry points
+are put in the wrappers' place in turn.
 
 ``faults``: an unchanged control copy must pass ``chip_smoke.check_rows``
-(both kernels bit for bit against their plain versions on
-``chip_smoke.ROW_CASES``, its RMAT pack at ``--scale``) and every planted
-fault must fail it.  Each copy is checked in a process of its own, so a
-fault that writes out of bounds ends only its own CUDA context.  Exits
-non-zero unless every verdict is as expected.
+for every row kernel (each bit for bit against its plain version on
+``chip_smoke.ROW_CASES``, its RMAT pack at ``--scale``), and every
+planted fault must fail it for each kernel that the fault names.  Each
+copy is checked in a process of its own, so a fault that writes out of
+bounds ends only its own CUDA context (a copy whose check crashes counts
+as failing it).  Exits non-zero unless every verdict is as expected.
 
 ``ablations``: at the main path's shapes (the ELL pack of
 ``chip_smoke.py``'s RMAT graph at ``--scale``, default 22, with its
 stream's diff pool; vals from a static SSSP and a static PageRank on the
-card), each kernel and each copy are timed by CUDA events with a cold L2
+card, and relax_rowargmin's targets their vertex minima), each kernel and
+each copy that concerns it are timed by CUDA events with a cold L2
 (median of 20 launches), in the order kernel, copy, copy, kernel.  A
 copy that keeps the kernels' contract must also equal the plain
-versions bit for bit; the copies marked "timing only" change what is
-computed (no gathers, or the same slots over and over) to show which
-part sets the pace.
+versions bit for bit, launched into outputs filled with junk; the copies
+marked "timing only" change what is computed (no gathers, or the same
+slots over and over) to show which part sets the pace.
 """
 from __future__ import annotations
 
@@ -41,7 +47,16 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
-NAMES = ("repro_fused_relax_rows", "repro_fused_spmv_rows")
+CSRC = ROOT / "src" / "repro_torch" / "csrc"
+# each built source and the entry points it holds, and the header both
+# include
+LIBS = {"repair.cu": ("repro_fused_relax_rows", "repro_fused_spmv_rows"),
+        "csr_relax.cu": ("repro_relax_rowmin", "repro_spmv_rowsum",
+                         "repro_relax_rowargmin")}
+SOURCES = (*LIBS, "ell_row.cuh")
+FUSED = ("fused_relax_rows", "fused_spmv_rows")
+CHAINED = ("spmv_rowsum", "relax_rowargmin")
+WARP_LOADED = FUSED + CHAINED
 
 # Loads put in front of the kernels by some copies: a slot load under L1
 # no-allocate and an L2 evict-first policy, and a gather (ell_row.cuh's
@@ -82,119 +97,176 @@ GATHERS = {
     "no L1": 'asm("ld.global.nc.L1::no_allocate.b32 %0, [%1];" '
              ': "=r"(v) : "l"(p));',
 }
-ANCHOR = '#include "ell_row.cuh"\n\nnamespace {\n'
+LOAD_ROW = "// The K slots of row r into x[0..K)"
 
 
 def helpers(gather: str) -> list:
-    """Substitutions that put HELPERS in, with the gather ``gather``, and
-    send every gather of vals through it."""
-    return [(ANCHOR, ANCHOR + HELPERS.replace("@GATHER@", GATHERS[gather])),
-            ("gather(vals, ", "gather_q(vals, ", 7)]
+    """Substitutions that put HELPERS into ell_row.cuh, with the gather
+    ``gather``, and send every gather of the row kernels through it."""
+    return [(LOAD_ROW,
+             HELPERS.replace("@GATHER@", GATHERS[gather]) + LOAD_ROW),
+            ("gather(vals, ", "gather_q(vals, ", 12)]
 
 
 THREAD_LOADS = [("warp_load_row8(ell_src, r, s);",
-                 "load_row<true>(ell_src, r, 8, s);", 2),
+                 "load_row<true>(ell_src, r, 8, s);", 4),
                 ("warp_load_row8(ell_w, r, w);",
-                 "load_row<true>(ell_w, r, 8, w);")]
-NO_CARVEOUT = [("      prefer_l1(", "      (void)(", 4)]
+                 "load_row<true>(ell_w, r, 8, w);", 2)]
+NO_CARVEOUT = [("      prefer_l1(", "      (void)(", 8)]
 BASE = "const long long base = (long long)blockIdx.x * blockDim.x;"
+ROW = "const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;"
+# name: (substitutions, the kernels timed against the copy)
 ABLATIONS = {
     "earlier kernel (each thread its row as two int4 by __ldg, carveout "
-    "left to the driver)": THREAD_LOADS + NO_CARVEOUT,
-    "each thread its row as two int4 by __ldg": THREAD_LOADS,
-    "shared-memory carveout left to the driver": NO_CARVEOUT,
+    "left to the CUDA driver)": (THREAD_LOADS + NO_CARVEOUT, WARP_LOADED),
+    "each thread its row as two int4 by __ldg": (THREAD_LOADS, WARP_LOADED),
+    "shared-memory carveout left to the CUDA driver": (NO_CARVEOUT,
+                                                       WARP_LOADED),
     "slots under L1 no-allocate and L2 evict-first, gathers under L2 "
-    "evict-last": helpers("evict-last") + [
+    "evict-last": (helpers("evict-last") + [
         ("__ldg(q + lane)", "ld_stream(q + lane)"),
         ("__ldg(q + 32 + (lane ^ 1))", "ld_stream(q + 32 + (lane ^ 1))")],
-    "gathers not allocated in L1": helpers("no L1"),
+        FUSED),
+    "gathers not allocated in L1": (helpers("no L1"), FUSED),
     "8,448 bytes of idle shared memory a block, carveout left to the "
-    "driver (L1 given up)": NO_CARVEOUT + [
+    "CUDA driver (L1 given up)": (NO_CARVEOUT + [
         ("  const size_t smem = (size_t)(block / 32) * sizeof(int);\n",
          "  const size_t smem = (size_t)(block / 32) * sizeof(int) + 8448;\n",
-         2)],
-    "stream only (timing only: every slot gathers vals[n])": [
+         2)], FUSED),
+    "stream only (timing only: every slot gathers vals[n])": ([
         ("gather(vals, s[0], n + 1)",
          "gather(vals, s[0] == 123456789 ? 0 : n, n + 1)", 2),
         ("gather(vals, s[k], n + 1)",
          "gather(vals, s[k] == 123456789 ? 0 : n, n + 1)"),
-        ("gather(vals, s, L)", "gather(vals, s == 123456789 ? 0 : L - 1, L)")],
-    "gathers only (timing only: the slots of 2,048 tiles spread over the "
-    "pack, over and over, kept in L2)": [
+        ("gather(vals, s, L)", "gather(vals, s == 123456789 ? 0 : L - 1, L)"),
+        ("gather(vals, s[0], L)",
+         "gather(vals, s[0] == 123456789 ? 0 : L - 1, L)", 2),
+        ("gather(vals, s[k], L)",
+         "gather(vals, s[k] == 123456789 ? 0 : L - 1, L)", 3)],
+        WARP_LOADED),
+    "gathers only (timing only: the slots of 262,144 rows spread over the "
+    "pack, 2,048 tiles of 128 or 1,024 blocks of 256, over and over, kept "
+    "in L2)": ([
         (BASE, "const long long base = (long long)(blockIdx.x % 2048 * "
-               "(gridDim.x / 2048)) * blockDim.x;", 2)],
+               "(gridDim.x / 2048)) * blockDim.x;", 2),
+        (ROW, "const long long r = (long long)(blockIdx.x % 1024 * "
+              "(gridDim.x / 1024)) * blockDim.x + threadIdx.x;", 3)],
+        WARP_LOADED),
+    "blocks of 128 rows": ([("constexpr int kBlock = 256;",
+                             "constexpr int kBlock = 128;")], CHAINED),
+    "row_targets loaded before the slots": ([
+        ("  int s[32], w[32];\n  if (WARP8) {",
+         "  const int t0 = __ldg(row_targets + r);\n"
+         "  int s[32], w[32];\n  if (WARP8) {"),
+        ("  const int t = __ldg(row_targets + r);\n",
+         "  const int t = t0;\n")], ("relax_rowargmin",)),
 }
 
+# name: (substitutions, the kernels whose check it must fail); the
+# control must pass every row kernel's
 FAULTS = {
-    "control (no fault)": [],
-    "compaction offset shifted (tile t compacted into tile t - 1)": [
+    "control (no fault)": ([], ()),
+    "compaction offset shifted (tile t compacted into tile t - 1)": ([
         ("if (hit) rows[base + pos] = (int)r;",
          "if (hit) rows[(base ? base - blockDim.x : 0) + pos] = (int)r;")],
-    "last row of each tile never a hit": [
+        FUSED),
+    "last row of each tile never a hit": ([
         ("  compact_block(hit, r, base, R, warp_tot, rows, counts);\n",
          "  hit = hit && threadIdx.x + 1 < blockDim.x;\n"
          "  compact_block(hit, r, base, R, warp_tot, rows, counts);\n", 2)],
-    "padding slots skipped instead of gathering vals[n]": [
+        FUSED),
+    "fused kernels: padding slots skipped instead of gathering vals[n]": ([
         ("        relax_slot(s[k], w[k], vals, n + 1, rmin, rarg, reach);",
          "        if (s[k] != n) relax_slot(s[k], w[k], vals, n + 1, rmin, "
          "rarg, reach);"),
         ("        acc = __fadd_rn(acc, gather(vals, s[k], n + 1));",
          "        if (s[k] != n) acc = __fadd_rn(acc, gather(vals, s[k], "
-         "n + 1));")],
-    "sentinel R not written after a tile's count": [
-        ("  if (tid >= total && r < R) rows[r] = R;\n", "")],
-    "warp load: second int4 not swapped between lane pairs": [
+         "n + 1));")], FUSED),
+    "sentinel R not written after a tile's count": ([
+        ("  if (tid >= total && r < R) rows[r] = R;\n", "")], FUSED),
+    # rows 16-31 then take their halves in the other order, which only
+    # the float sums' order can show: a min is the same in any order
+    "warp load: second int4 not swapped between lane pairs (rows 16-31 "
+    "take their halves swapped)": ([
         ("__ldg(q + 32 + (lane ^ 1))", "__ldg(q + 32 + lane)")],
-    "warp load: a row's second half from its first half's lane": [
-        ("j1 = j0 ^ 1;", "j1 = j0;")],
+        ("fused_spmv_rows", "spmv_rowsum")),
+    "warp load: a row's second half from its first half's lane": ([
+        ("j1 = j0 ^ 1;", "j1 = j0;")], WARP_LOADED),
+    "warp load: rows 16-31 shuffled from the lanes of rows 0-15": ([
+        ("const int j0 = ((2 * lane) & 31) | (lane >> 4), j1 = j0 ^ 1;",
+         "const int j0 = (2 * lane) & 31, j1 = j0 ^ 1;")], WARP_LOADED),
+    "spmv_rowsum: padding slots skipped instead of gathering vals[n]": ([
+        ("acc = __fadd_rn(acc, gather(vals, s[k], L));",
+         "if (s[k] != L - 1) acc = __fadd_rn(acc, gather(vals, s[k], L));")],
+        ("spmv_rowsum",)),
+    "relax_rowargmin: padding slots skipped instead of gathering "
+    "vals[n]": ([
+        ("    if (wrap_add(gather(vals, s[k], L), w[k]) == t)",
+         "    if (s[k] == n) continue;\n"
+         "    if (wrap_add(gather(vals, s[k], L), w[k]) == t)")],
+        ("relax_rowargmin",)),
 }
 
 
-def planted(text: str, subs) -> str:
-    """Each (old, new) or (old, new, count) of ``subs`` in ``text``; old
-    must occur exactly once, or ``count`` times."""
+def sources() -> dict:
+    """{file name: text} of SOURCES as they stand."""
+    return {name: (CSRC / name).read_text() for name in SOURCES}
+
+
+def planted(texts: dict, subs) -> dict:
+    """Each (old, new) or (old, new, count) of ``subs`` in every text of
+    ``texts``; old must occur exactly once across them, or ``count``
+    times."""
+    texts = dict(texts)
     for old, new, *count in subs:
         want = count[0] if count else 1
-        if text.count(old) != want:
-            raise ValueError(f"{old!r} occurs {text.count(old)} times, "
-                             f"not {want}")
-        text = text.replace(old, new)
-    return text
+        have = sum(t.count(old) for t in texts.values())
+        if have != want:
+            raise ValueError(f"{old!r} occurs {have} times, not {want}")
+        texts = {k: t.replace(old, new) for k, t in texts.items()}
+    return texts
 
 
 def build(variants: dict, out_dir: pathlib.Path) -> dict:
-    """{name: library path}, built in parallel."""
+    """{name: directory of the copy's libraries}, every ``.cu`` of every
+    copy built at once."""
     from repro_torch.kernels import _build
-    src = _build.CSRC / "repair.cu"
-    text = src.read_text()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    base = sources()
+    procs = []
+    dirs = {}
     for i, (name, subs) in enumerate(variants.items()):
-        cu = out_dir / f"repair_{i}.cu"
-        cu.write_text(planted(text, subs))
-        so = out_dir / f"librepair_{i}.so"
-        procs[name] = (subprocess.Popen(
-            [_build._nvcc(), *_build.flags(src), "-I", str(_build.CSRC),
-             "-o", str(so), str(cu)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), so)
-    libs = {}
-    for name, (proc, so) in procs.items():
+        d = out_dir / f"v{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        for fname, text in planted(base, subs).items():
+            (d / fname).write_text(text)
+        dirs[name] = d
+        for src in LIBS:
+            so = d / f"lib{pathlib.Path(src).stem}.so"
+            procs.append((name, subprocess.Popen(
+                [_build._nvcc(), *_build.flags(CSRC / src), "-I", str(d),
+                 "-o", str(so), str(d / src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, proc in procs:
         log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {name!r}:\n{log}")
-        libs[name] = so
-    return libs
+            failed.append(f"nvcc failed on {name!r}:\n{log}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return dirs
 
 
-def entry_points(so) -> dict:
+def entry_points(lib_dir) -> dict:
     from repro_torch.kernels import _build
-    lib = ctypes.CDLL(str(so))
     fns = {}
-    for name in NAMES:
-        fn = getattr(lib, name)
-        fn.argtypes = _build._SIGNATURES[name]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
+    for src, names in LIBS.items():
+        lib = ctypes.CDLL(str(pathlib.Path(lib_dir) /
+                              f"lib{pathlib.Path(src).stem}.so"))
+        for name in names:
+            fn = getattr(lib, name)
+            fn.argtypes = _build._SIGNATURES[name]
+            fn.restype = ctypes.c_int
+            fns[name] = fn
     return fns
 
 
@@ -206,52 +278,75 @@ def use(fns: dict) -> None:
     _build._LIB = types.SimpleNamespace(**{**vars(lib), **fns})
 
 
-def check_one(so, scale: int) -> int:
-    """One copy (or, with no ``so``, the real kernels) through
-    chip_smoke.check_rows: 0 if it passes, 1 if it fails the check
-    (anything else is a crash)."""
+def check_one(lib_dir, scale: int, kernels) -> int:
+    """One copy (or, with no ``lib_dir``, the real kernels) through
+    chip_smoke.check_rows for ``kernels``: prints a verdict line a kernel
+    and returns 0 if all pass, 1 if any fails (anything else is a
+    crash)."""
     import torch
     import chip_smoke
     import repro_torch
+    from repro_torch.kernels import csr_relax as CK
     from repro_torch.kernels import repair as FK
-    if so is not None:
-        use(entry_points(so))
+    if lib_dir is not None:
+        use(entry_points(lib_dir))
+    failed = {}
     try:
-        for line in chip_smoke.check_rows(torch, repro_torch, FK, scale):
+        for line in chip_smoke.check_rows(torch, repro_torch, FK, CK, scale,
+                                          kernels):
             print(f"[check] {line}", flush=True)
         torch.cuda.synchronize()
-    except AssertionError as exc:
-        print(f"[check] fails: {exc}", flush=True)
-        return 1
-    return 0
-
-
-def faults(libs: dict, scale: int) -> bool:
-    ok = True
-    for name, so in libs.items():
-        proc = subprocess.run(
-            [sys.executable, __file__, "check", str(so), "--scale",
-             str(scale)], capture_output=True, text=True, timeout=600)
-        tail = (proc.stdout + proc.stderr).strip().splitlines()[-3:]
-        passed = proc.returncode == 0
-        verdict = ("passes check_rows" if passed else
-                   f"fails check_rows (exit {proc.returncode})")
-        expected = name.startswith("control") == passed
-        ok &= expected
-        print(f"[fault] {name}: {verdict}{'' if expected else ' -- WRONG'}",
+    except chip_smoke.RowMismatch as exc:
+        failed = exc.failed
+    for k in kernels:
+        print(f"[verdict] {k}: "
+              f"{'fails: ' + failed[k][:240] if k in failed else 'passes'}",
               flush=True)
-        for line in tail:
-            print(f"[fault]   {line[:300]}", flush=True)
+    return 1 if failed else 0
+
+
+def faults(dirs: dict, scale: int) -> bool:
+    import chip_smoke
+    ok = True
+    for name, lib_dir in dirs.items():
+        must_fail = FAULTS[name][1]
+        kernels = must_fail or chip_smoke.ROW_KERNELS
+        proc = subprocess.run(
+            [sys.executable, __file__, "check", str(lib_dir), "--scale",
+             str(scale), "--kernels", ",".join(kernels)],
+            capture_output=True, text=True, timeout=600)
+        verdicts = dict(line[len("[verdict] "):].split(": ", 1)
+                        for line in proc.stdout.splitlines()
+                        if line.startswith("[verdict] "))
+        crashed = proc.returncode not in (0, 1)
+        if must_fail:
+            expected = crashed or all(
+                verdicts.get(k, "").startswith("fails") for k in kernels)
+        else:
+            expected = proc.returncode == 0
+        ok &= expected
+        print(f"[fault] {name}: {'crashes' if crashed else 'checked'}, "
+              f"exit {proc.returncode}{'' if expected else ' -- WRONG'}",
+              flush=True)
+        for k in kernels:
+            print(f"[fault]   {k}: {verdicts.get(k, 'no verdict')[:300]}",
+                  flush=True)
+        if crashed:
+            tail = (proc.stdout + proc.stderr).strip().splitlines()[-3:]
+            for line in tail:
+                print(f"[fault]   {line[:300]}", flush=True)
     return ok
 
 
 def main_path_inputs(torch, scale: int):
-    """The ELL pack of chip_smoke.py's graph and stream at ``scale`` and
-    the vals of a static SSSP and a static PageRank on it."""
+    """The ELL pack of chip_smoke.py's graph and stream at ``scale``, the
+    vals of a static SSSP and a static PageRank on it, and the rows'
+    targets for relax_rowargmin (their vertices' min-plus)."""
     import chip_smoke
     import repro_torch
     from repro_torch.algos import pagerank, sssp
     from repro_torch.graph.csr import INF_W
+    from repro_torch.kernels import ops as kops
     n, edges, w = repro_torch.rmat_graph(scale, chip_smoke.DEGREE, seed=0)
     csr = repro_torch.build_csr(n, edges, w, device="cuda")
     stream = repro_torch.random_updates(csr, percent=chip_smoke.PERCENT,
@@ -265,40 +360,54 @@ def main_path_inputs(torch, scale: int):
                       dist.new_full((1,), INF_W)])
     pr = sess.call(pagerank.static_pr, *chip_smoke.PR_KNOBS)
     fvals = torch.cat([pr["pr"] * pr["inv_outdeg"], pr["pr"].new_zeros(1)])
-    return ell, block, vals, fvals
+    vmin = kops.vertex_min_plus(ell, vals)
+    tgt = torch.cat([vmin, vmin.new_full((1,), INF_W)])[
+        ell.row2dst.clamp(max=ell.n)]
+    return ell, block, vals, fvals, tgt
 
 
-def ablations(libs: dict, scale: int) -> bool:
+def ablations(dirs: dict, scale: int) -> bool:
     import torch
     import chip_smoke
+    from repro_torch.kernels import csr_relax as CK
     from repro_torch.kernels import repair as FK
     flush = torch.empty(chip_smoke.L2_FLUSH_BYTES, dtype=torch.uint8,
                         device="cuda")
-    ell, block, vals, fvals = main_path_inputs(torch, scale)
+    ell, block, vals, fvals, tgt = main_path_inputs(torch, scale)
     R, K, n = ell.R, ell.K, ell.n
+    src, w = ell.ell_src, ell.ell_w
     print(f"[ablation] R={R} K={K} n={n} tile {block}", flush=True)
     kernels = {
         "fused_relax_rows": (
-            (ell.ell_src, ell.ell_w, vals),
-            lambda: FK.fused_relax_rows(ell.ell_src, ell.ell_w, vals,
-                                        block=block),
-            lambda: FK.fused_relax_rows_plain(ell.ell_src, ell.ell_w, vals,
-                                              block)),
+            (src, w, vals),
+            lambda: FK.fused_relax_rows(src, w, vals, block=block),
+            lambda: FK.fused_relax_rows_plain(src, w, vals, block)),
         "fused_spmv_rows": (
-            (ell.ell_src, ell.row2dst, fvals),
-            lambda: FK.fused_spmv_rows(ell.ell_src, ell.row2dst, fvals,
-                                       block=block),
-            lambda: FK.fused_spmv_rows_plain(ell.ell_src, ell.row2dst,
-                                             fvals, block)),
+            (src, ell.row2dst, fvals),
+            lambda: FK.fused_spmv_rows(src, ell.row2dst, fvals, block=block),
+            lambda: FK.fused_spmv_rows_plain(src, ell.row2dst, fvals,
+                                             block)),
+        "spmv_rowsum": (
+            (src, fvals), lambda: CK.spmv_rowsum(src, fvals),
+            lambda: CK.spmv_rowsum_plain(src, fvals)),
+        "relax_rowargmin": (
+            (src, w, vals, tgt),
+            lambda: CK.relax_rowargmin(src, w, vals, tgt, n=n),
+            lambda: CK.relax_rowargmin_plain(src, w, vals, tgt, n)),
     }
-    real = entry_points(libs.pop("kernel"))
-    copies = {name: entry_points(so) for name, so in libs.items()}
+    real = entry_points(dirs.pop("kernel"))
+    copies = {name: entry_points(d) for name, d in dirs.items()}
     ok = True
+    def launch(fn):
+        with chip_smoke.junk_outputs(torch):
+            got = chip_smoke.outputs(fn())
+        torch.cuda.synchronize()
+        return got
+
     for kname, (inputs, fn, plain) in kernels.items():
         use(real)
-        want = plain()
-        got = fn()
-        torch.cuda.synchronize()
+        want = chip_smoke.outputs(plain())
+        got = launch(fn)
         exact = all(torch.equal(a, b) for a, b in zip(got, want))
         ok &= exact
         b_ms = chip_smoke.bound(chip_smoke.nbytes(*inputs, *got), 0)[0]
@@ -307,9 +416,10 @@ def ablations(libs: dict, scale: int) -> bool:
               f"{'bit-exact' if exact else 'NOT bit-exact'}, bound "
               f"{b_ms:.4f} ms by bytes", flush=True)
         for name, fns in copies.items():
+            if kname not in ABLATIONS[name][1]:
+                continue
             use(fns)
-            got = fn()
-            torch.cuda.synchronize()
+            got = launch(fn)
             same = all(torch.equal(a, b) for a, b in zip(got, want))
             del got
             if "timing only" not in name:
@@ -331,10 +441,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("what", choices=("faults", "ablations", "check"))
     ap.add_argument("lib", nargs="?",
-                    help="check: the copy to check (default: the kernels "
-                         "in csrc/)")
+                    help="check: the directory of the copy's libraries "
+                         "(default: the kernels in csrc/)")
     ap.add_argument("--scale", type=int, default=None,
                     help="RMAT scale (faults: 18, ablations: 22)")
+    ap.add_argument("--kernels", default=None,
+                    help="check: the row kernels to check, comma-separated "
+                         "(default: all)")
     ap.add_argument("--out", default=str(ROOT / "build" / "row_variants"))
     ap.add_argument("--only", default=None,
                     help="ablations: only the copies whose name holds "
@@ -344,19 +457,22 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("row_variants: no CUDA device is available", file=sys.stderr)
         return 2
-    if args.what == "check":
-        return check_one(args.lib, args.scale or 18)
     import chip_smoke
+    if args.what == "check":
+        kernels = (args.kernels.split(",") if args.kernels
+                   else chip_smoke.ROW_KERNELS)
+        return check_one(args.lib, args.scale or 18, kernels)
     print(chip_smoke.nvidia_smi(), flush=True)
     if args.what == "faults":
-        libs = build(FAULTS, pathlib.Path(args.out) / "faults")
-        ok = faults(libs, args.scale or 18)
+        dirs = build({k: v[0] for k, v in FAULTS.items()},
+                     pathlib.Path(args.out) / "faults")
+        ok = faults(dirs, args.scale or 18)
     else:
-        keep = {k: v for k, v in ABLATIONS.items()
+        keep = {k: v[0] for k, v in ABLATIONS.items()
                 if args.only is None or args.only in k}
-        libs = build({"kernel": [], **keep},
+        dirs = build({"kernel": [], **keep},
                      pathlib.Path(args.out) / "ablations")
-        ok = ablations(libs, args.scale or 22)
+        ok = ablations(dirs, args.scale or 22)
     return 0 if ok else 1
 
 
