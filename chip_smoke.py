@@ -33,12 +33,15 @@ Phases (any failure exits non-zero):
    fixed order), with their times beside the bound (bytes each input read
    once and each output written once, over 3.35 TB/s, or operations over
    the float32 peak, whichever is larger) and a one-call PyTorch
-   yardstick where one exists.  ``fused_relax_rows``,
-   ``fused_spmv_rows``, ``spmv_rowsum`` and ``relax_rowargmin`` must take
-   their warp-loaded path at these shapes (their records name it), and
-   the five row kernels also run ``ROW_CASES`` (tiles of 128 to 512, K 4
-   to 16, one tile, an RMAT pack, misaligned views, and for the chained
-   kernels an R that is no multiple of 32), bit for bit.
+   yardstick where one exists.  The five row kernels must take their
+   warp-loaded path at these shapes (their records name it) and also run
+   ``ROW_CASES`` (tiles of 128 to 512, K 4 to 16, one tile, an RMAT pack,
+   misaligned views, and for the chained kernels an R that is no
+   multiple of 32), bit for bit; ``merge_pool_sorted`` runs
+   ``MERGE_CASES`` (ties with rows that differ, D at and around its tile's
+   edges, B above the tile and above D, an empty pool, a batch before or
+   after the whole pool, negative source ids), bit for bit, before it is
+   timed.
 4. Correctness of the runs: SSSP ``dist``, ``parent`` and every DynGraph
    array equal the ``torch`` backend's, ``cuda_chained``'s dist and parent
    equal ``cuda``'s, and dist equals scipy's Dijkstra over the
@@ -233,6 +236,7 @@ ROW_CASES = [
 ROW_SENTINELS = (12345, 0.5)
 ROW_KERNELS = ("fused_relax_rows", "fused_spmv_rows", "relax_rowmin",
                "spmv_rowsum", "relax_rowargmin")
+GRAPH_KERNELS = ROW_KERNELS + ("merge_pool_sorted",)
 
 
 def row_pack(torch, repro_torch, pack, K, scale):
@@ -288,8 +292,8 @@ def junk_outputs(torch):
 
 
 class RowMismatch(AssertionError):
-    """Row kernels that differ from their plain versions; ``failed`` maps
-    each to its first difference."""
+    """Graph kernels (the row kernels, the merge) that differ from their
+    plain versions; ``failed`` maps each to its first difference."""
 
     def __init__(self, failed: dict):
         super().__init__("; ".join(f"{k}, {v}" for k, v in failed.items()))
@@ -361,10 +365,130 @@ def check_rows(torch, repro_torch, FK, CK, scale=16,
     return lines
 
 
+# merge_pool_sorted against its plain version, bit for bit, on lists the
+# main path does not give it: its own merges draw batch keys that miss the
+# pool, so no tie there has rows that differ, and D is far from a tile's
+# edge.  name, D, B, pool rows used, batch rows used (the rest of each
+# list is vacant: (n, 0, 0, dead)), the share of the batch's keys taken
+# from the pool's (ties, with their own w and alive), and where the
+# batch's keys lie: None (among the pool's), "before" or "after" every
+# pool key, or "negative" (pool sources in [-n, n), as an unchecked
+# session's pool can hold), with the batch's sources there too.  T is the
+# kernel's tile of output slots (``repair.MERGE_TILE``; check_merge holds
+# the two equal).
+T = MERGE_TILE = 1024
+MERGE_CASES = [
+    ("heavy ties", 3000, 1000, 2000, 1000, 0.5, None),
+    ("D 1, B 1", 1, 1, 1, 1, 0.0, None),
+    ("D 1, B 1, the batch row first", 1, 1, 1, 1, 0.0, "before"),
+    ("D T - 1", T - 1, 500, 1500, 400, 0.25, None),
+    ("D T", T, 500, 1500, 500, 0.25, None),
+    ("D T + 1", T + 1, 700, 1400, 700, 0.25, None),
+    ("D 3T + 5", 3 * T + 5, 3000, 3000, 2500, 0.25, None),
+    ("B > T", 9000, 5000, 4000, 5000, 0.5, None),
+    ("B > D", 100, 3000, 40, 3000, 0.25, None),
+    ("pool all vacant", 4096, 1000, 0, 1000, 0.0, None),
+    ("batch before the pool", 5000, 1000, 3000, 1000, 0.0, "before"),
+    ("batch after the pool", 5000, 1000, 3000, 1000, 0.0, "after"),
+    ("negative pool source ids", 5000, 2000, 3000, 2000, 0.25, "negative"),
+    ("many tiles", 40000, 8192, 30000, 8000, 0.5, None),
+]
+MERGE_N = 5000
+
+
+def merge_case(np, seed, D, B, pool_used, batch_used, ties, where,
+               n=MERGE_N) -> list:
+    """The eight input arrays (pool src, dst, w, alive; batch src, dst, w,
+    alive) of one MERGE_CASES entry, as numpy arrays, each list sorted by
+    (src, dst) with its vacant rows at the end."""
+    rng = np.random.default_rng(seed)
+    half = {"before": ((n // 2, n), (0, n // 2)),
+            "after": ((0, n // 2), (n // 2, n)),
+            "negative": ((-n, n), (-n, n))}
+    (pl, ph), (bl, bh) = half.get(where, ((0, n), (0, n)))
+    pk = rng.permutation(np.unique(rng.integers(
+        pl * n, ph * n, 2 * pool_used + 1)))[:pool_used]
+    tie = rng.choice(pk, min(int(batch_used * ties), pk.shape[0]),
+                     replace=False)
+    new = np.unique(rng.integers(bl * n, bh * n, 2 * batch_used + 1))
+    new = rng.permutation(new[~np.isin(new, pk)])[:batch_used - len(tie)]
+    fk = np.concatenate([tie, new])
+
+    def rows(keys, size):
+        keys = np.sort(keys)[:size]
+        used = np.arange(size) < keys.shape[0]
+        k = np.concatenate([keys, np.zeros(size - keys.shape[0], np.int64)])
+        return [np.where(used, np.floor_divide(k, n), n).astype(np.int32),
+                np.where(used, np.mod(k, n), 0).astype(np.int32),
+                np.where(used, rng.integers(1, 50, size), 0).astype(np.int32),
+                used & (rng.random(size) < 0.8)]
+
+    return rows(pk, D) + rows(fk, B)
+
+
+def check_merge(torch, FK, cases=MERGE_CASES) -> list:
+    """``cases`` through merge_pool_sorted against its plain version, bit
+    for bit, each launch into outputs filled with junk; raises RowMismatch
+    naming merge_pool_sorted at the first case that differs.  Returns a
+    line a case."""
+    import numpy as np
+    if FK.MERGE_TILE != MERGE_TILE:
+        raise AssertionError(f"MERGE_CASES are cut for tiles of "
+                             f"{MERGE_TILE} slots, the kernel's are "
+                             f"{FK.MERGE_TILE}")
+    lines = []
+    for i, (name, D, B, pool_used, batch_used, ties, where) in \
+            enumerate(cases):
+        arrays = [torch.from_numpy(x).to(DEV) for x in merge_case(
+            np, i, D, B, pool_used, batch_used, ties, where)]
+        with junk_outputs(torch):
+            got = FK.merge_pool_sorted(*arrays, n=MERGE_N)
+        want = FK.merge_pool_sorted_plain(*arrays, MERGE_N)
+        torch.cuda.synchronize()
+        try:
+            max_abs_err(torch, got, want)
+        except AssertionError as exc:
+            raise RowMismatch({"merge_pool_sorted": f"{name}: {exc}"}) \
+                from None
+        ties_n = int(torch.isin(arrays[4].long() * MERGE_N + arrays[5],
+                                arrays[0].long() * MERGE_N + arrays[1])
+                     [:batch_used].sum())
+        lines.append(f"{name}: D={D} B={B}, {pool_used} pool and "
+                     f"{batch_used} batch rows used, {ties_n} ties, "
+                     f"bit-exact")
+    return lines
+
+
+def merge_batch(torch, np, g, n) -> list:
+    """An admitted batch of BATCH fresh edges for the pool of ``g`` (keys
+    that miss the pool, sorted, all alive), as the main path merges
+    one."""
+    rng = np.random.default_rng(2)
+    pool_keys = (g.d_src.long() * n + g.d_dst.long()).cpu().numpy()
+    fk = np.unique(rng.integers(0, n, size=2 * BATCH) * np.int64(n)
+                   + rng.integers(0, n, size=2 * BATCH))
+    fk = fk[~np.isin(fk, pool_keys)][:BATCH]
+    if fk.shape[0] != BATCH:
+        raise AssertionError(f"drew {fk.shape[0]} fresh edges, wanted "
+                             f"{BATCH}")
+    fresh = [torch.from_numpy(x.astype(np.int32)).to(DEV)
+             for x in (fk // n, fk % n, rng.integers(1, 100, size=BATCH))]
+    fresh.append(torch.ones(BATCH, dtype=torch.bool, device=DEV))
+    return fresh
+
+
+def merge_ops(D: int) -> int:
+    """The merge kernel's operations: a lexicographic compare (4 integer
+    operations) for each output slot, and log2(T) more for each thread's
+    split inside its tile of T slots, 8 slots a thread (the two warp
+    searches a tile are a few hundred more)."""
+    return 4 * D * (8 + MERGE_TILE.bit_length() - 1) // 8
+
+
 def warp_loaded(mod, rec, ell_src, ell_w=None) -> None:
-    """A row kernel with a warp-loaded path (the fused ones of ``FK``,
-    spmv_rowsum and relax_rowargmin of ``CK``) must take it at the main
-    path's shapes; its record names the path."""
+    """A row kernel with a warp-loaded path (the fused ones of ``FK``, the
+    chained ones of ``CK``) must take it at the main path's shapes; its
+    record names the path."""
     if not mod.warp_loads(ell_src, ell_w):
         raise AssertionError(f"{rec['name']}: the main path's slots do not "
                              f"take the warp-loaded path")
@@ -929,19 +1053,11 @@ def main(argv=None) -> int:
         R=R, K=K, n=n, block=cfg.row_block))
     warp_loaded(FK, kernels[-1], ell.ell_src, ell.ell_w)
 
-    rng = np.random.default_rng(2)
+    for line in check_merge(torch, FK):
+        log(f"[merge] {line}")
     pool = (g.d_src, g.d_dst, g.d_w, g.d_alive)
     D = g.diff_capacity
-    pool_keys = (g.d_src.long() * n + g.d_dst.long()).cpu().numpy()
-    fk = np.unique(rng.integers(0, n, size=2 * BATCH) * np.int64(n)
-                   + rng.integers(0, n, size=2 * BATCH))
-    fk = fk[~np.isin(fk, pool_keys)][:BATCH]
-    if fk.shape[0] != BATCH:
-        raise AssertionError(f"drew {fk.shape[0]} fresh edges, wanted "
-                             f"{BATCH}")
-    fresh = [torch.from_numpy(x.astype(np.int32)).to(DEV)
-             for x in (fk // n, fk % n, rng.integers(1, 100, size=BATCH))]
-    fresh.append(torch.ones(BATCH, dtype=torch.bool, device=DEV))
+    fresh = merge_batch(torch, np, g, n)
     keys = torch.cat([g.d_src.long() * (n + 1) + g.d_dst.long(),
                       fresh[0].long() * (n + 1) + fresh[1].long()])
     kernels.append(check_kernel(
@@ -951,9 +1067,11 @@ def main(argv=None) -> int:
         sssp_launches["merge_pool_sorted"],
         lambda: FK.merge_pool_sorted(*pool, *fresh, n=n),
         lambda: FK.merge_pool_sorted_plain(*pool, *fresh, n),
-        nbytes(*pool, *fresh), D * FK._merge_iters(BATCH) * 6,
+        nbytes(*pool, *fresh), merge_ops(D),
         library=lambda: torch.sort(keys, stable=True),
         D=D, B=BATCH, n=n, used=int((g.d_src < n).sum())))
+    kernels[-1]["variant"] = (f"tiles of {T} output slots staged in shared "
+                              f"memory, warp-searched splits")
     cuda_g = g
     sssp_cuda = {k: props[k] for k in ("dist", "parent")}
     del sess, h, ell, props, vals, keys, pool, fresh, dist
@@ -1039,6 +1157,7 @@ def main(argv=None) -> int:
         lambda: CK.relax_rowmin(ell.ell_src, ell.ell_w, vals),
         lambda: CK.relax_rowmin_plain(ell.ell_src, ell.ell_w, vals),
         nbytes(ell.ell_src, ell.ell_w, vals), 2 * R * K, R=R, K=K, n=n))
+    warp_loaded(CK, kernels[-1], ell.ell_src, ell.ell_w)
     vmin = kops.vertex_min_plus(ell, vals)
     tgt = torch.cat([vmin, vmin.new_full((1,), INF_W)])[
         ell.row2dst.clamp(max=n)]

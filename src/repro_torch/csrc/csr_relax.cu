@@ -23,14 +23,18 @@
 // counts.  The TPU kernels keep vals resident in VMEM and walk 128-row
 // tiles in order; here one thread takes one row, so a warp reads 32
 // consecutive rows, and gathers vals through the read-only path (__ldg).
-// spmv_rowsum and relax_rowargmin load a K = 8 row, when the warp's 32
-// rows all exist and are 16-byte aligned, with the whole warp
-// (ell_row.cuh: warp_load_row8: fully used 512-byte requests, 8
-// shuffles), and ask for the smallest shared-memory carveout (prefer_l1),
-// so L1 is left to the gathers (these blocks use no shared memory, and at
-// the main path's shape the CUDA driver's own choice timed the same);
-// relax_rowmin loads its row as two 16-byte loads a thread and leaves the
-// carveout to the CUDA driver.
+// All three load a K = 8 row, when the warp's 32 rows all exist and are
+// 16-byte aligned, with the whole warp (ell_row.cuh: warp_load_row8:
+// fully used 512-byte requests, 8 shuffles, where a thread's own two
+// int4 a row would touch each sector twice, at different times, while
+// the gathers compete for L1), and ask for the smallest shared-memory
+// carveout (prefer_l1), so L1 is left to the gathers (these blocks use no
+// shared memory, and at the main path's shape the CUDA driver's own
+// choice timed the same).  Other K, ragged R and misaligned views load
+// slot by slot.  ell_row.cuh's load_row<true> (a thread's row as two
+// int4, the loads before the warp loads) is called by no kernel here: it
+// stays for tools/row_variants.py, whose "earlier kernel" copies put it
+// back in the warp loads' place.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -39,7 +43,10 @@
 
 namespace {
 
-template <bool VEC8>
+// WARP8: K == 8, R % 32 == 0 and 16-byte aligned slots, loaded by
+// warp_load_row8.  A warp's rows then all exist or none does, so the
+// early return leaves whole warps to the shuffles.
+template <bool WARP8>
 __global__ void relax_rowmin_kernel(const int* __restrict__ ell_src,
                                     const int* __restrict__ ell_w,
                                     const int* __restrict__ vals,
@@ -47,10 +54,15 @@ __global__ void relax_rowmin_kernel(const int* __restrict__ ell_src,
                                     int L) {
   const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
-  const int kk = VEC8 ? 8 : K;
+  const int kk = WARP8 ? 8 : K;
   int s[32], w[32];
-  load_row<VEC8>(ell_src, r, kk, s);
-  load_row<VEC8>(ell_w, r, kk, w);
+  if (WARP8) {
+    warp_load_row8(ell_src, r, s);
+    warp_load_row8(ell_w, r, w);
+  } else {
+    load_row<false>(ell_src, r, kk, s);
+    load_row<false>(ell_w, r, kk, w);
+  }
   int m = wrap_add(gather(vals, s[0], L), w[0]);
 #pragma unroll 8
   for (int k = 1; k < kk; ++k)
@@ -58,9 +70,7 @@ __global__ void relax_rowmin_kernel(const int* __restrict__ ell_src,
   out[r] = m;
 }
 
-// WARP8: K == 8, R % 32 == 0 and 16-byte aligned slots, loaded by
-// warp_load_row8.  A warp's rows then all exist or none does, so the
-// early return leaves whole warps to the shuffles.
+// WARP8: as relax_rowmin_kernel's.
 template <bool WARP8>
 __global__ void spmv_rowsum_kernel(const int* __restrict__ ell_src,
                                    const float* __restrict__ vals,
@@ -111,15 +121,13 @@ __global__ void relax_rowargmin_kernel(const int* __restrict__ ell_src,
 
 constexpr int kBlock = 256;
 
-bool vec8(int K, const void* a, const void* b) {
-  return K == 8 && (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0;
-}
-
-// The warp-loaded path: vec8 and whole warps of rows (blocks of kBlock
-// rows are whole warps, so R % 32 == 0 makes every warp's rows all exist
-// or all not).  kernels/csr_relax.py: warp_loads repeats this test.
+// The warp-loaded path: K == 8, 16-byte aligned slots and whole warps of
+// rows (blocks of kBlock rows are whole warps, so R % 32 == 0 makes every
+// warp's rows all exist or all not).  kernels/csr_relax.py: warp_loads
+// repeats this test.
 bool warp8(int K, int R, const void* a, const void* b) {
-  return vec8(K, a, b) && R % 32 == 0;
+  return K == 8 && (uintptr_t)a % 16 == 0 && (uintptr_t)b % 16 == 0 &&
+         R % 32 == 0;
 }
 
 }  // namespace
@@ -133,11 +141,13 @@ extern "C" int repro_relax_rowmin(const void* ell_src, const void* ell_w,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = (R + kBlock - 1) / kBlock;
   if (grid > 0) {
-    if (vec8(K, ell_src, ell_w)) {
+    if (warp8(K, R, ell_src, ell_w)) {
+      prefer_l1(relax_rowmin_kernel<true>);
       relax_rowmin_kernel<true><<<grid, kBlock, 0, st>>>(
           (const int*)ell_src, (const int*)ell_w, (const int*)vals,
           (int*)out, R, K, L);
     } else {
+      prefer_l1(relax_rowmin_kernel<false>);
       relax_rowmin_kernel<false><<<grid, kBlock, 0, st>>>(
           (const int*)ell_src, (const int*)ell_w, (const int*)vals,
           (int*)out, R, K, L);

@@ -45,15 +45,35 @@
 //
 // merge_pool_sorted
 //   Replaces: src/repro/kernels/pallas_repair.py merge_pool_sorted
-//   (_merge_kernel).  Merges the diff pool (D rows, sorted by (src, dst),
-//   vacant rows src == n at the end) with the admitted batch (B rows,
-//   sorted likewise); the pool wins ties; slots past both lists are
-//   filled (n, 0, 0, dead).
-//   Bound: device-memory bytes (13 bytes a row in, 13 out) and, at a few
-//   MB, launch latency.  Design: one thread per output slot j < D runs the
-//   merge-path binary search on its diagonal (log2(B) dependent loads of
-//   the small batch, which stay in L1/L2) and writes its slot; no tile
-//   padding, the thread guards j < D.
+//   (_merge_kernel).  Merges the diff pool (D rows, sorted by (src, dst)
+//   as signed int32 pairs, vacant rows src == n at the end) with the
+//   admitted batch (B rows, sorted likewise); the pool wins ties.  Output
+//   slot j < D takes the j-th merged row (j < D always leaves a pool row
+//   unmerged, so no slot lies past both lists and n is not needed).
+//   Bound: device-memory bytes, 13 a row in and 13 out (17.8 MB at the
+//   smoke's D = 652,422, B = 65,536: 0.0053 ms), and at that size launch
+//   and latency.  A merge-path search per output slot (the earlier
+//   kernel: 18 rounds of four dependent scattered loads each, 47 M L2
+//   requests) is paced by latency and request count, not by bytes.
+//   Design: a block owns a tile of kMergeTile consecutive output slots.
+//   Two warps find the merge-path splits of its first and last diagonal
+//   at once, each cooperatively: 32 lanes probe 32 evenly spaced
+//   candidates and a ballot narrows the range 32-fold a round (4 rounds
+//   at B = 65,536; the whole block probing 256 candidates a round timed
+//   slower, as did tiles of 512 and 2,048).  The block then copies the
+//   pool and batch rows of its tile into shared memory with coalesced
+//   4-byte loads (the ranges start anywhere, so neither 16-byte vectors
+//   nor 1-D TMA bulk copies, which need 16-byte aligned starts and sizes,
+//   apply; plain loads, all of a thread's issued before any is stored,
+//   keep as many in flight as cp.async would, with less code).  Each
+//   thread finds its own split inside the tile in shared memory (10
+//   probes) and merges its kMergePer slots serially; the merged rows go
+//   back through shared memory and out with neighbouring threads on
+//   neighbouring addresses.  Shared arrays skip one word every 32, so a
+//   thread's kMergePer consecutive slots fall in distinct banks across
+//   the warp.  No atomics, one launch.  The lists must be sorted: on an
+//   unsorted tail (an unchecked session's rows with src > n) any merge
+//   path may order that tail differently.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -193,43 +213,152 @@ __global__ void fused_spmv_rows_kernel(const int* __restrict__ ell_src,
   compact_block(hit, r, base, R, warp_tot, rows, counts);
 }
 
-__global__ void merge_pool_sorted_kernel(
+constexpr int kMergeTile = 1024;    // output slots a block
+constexpr int kMergeThreads = 256;
+constexpr int kMergePer = kMergeTile / kMergeThreads;  // slots a thread
+constexpr int kMergePad = kMergeTile + kMergeTile / 32;
+
+// Shared-memory slot of tile row i: one word skipped every 32.
+__device__ __forceinline__ int pad(int i) { return i + (i >> 5); }
+
+// Whether the batch row (fs, fd) goes before the pool row (ps, pd): only
+// when strictly less, so the pool wins ties.
+__device__ __forceinline__ bool fresh_first(int fs, int fd, int ps, int pd) {
+  return fs < ps || (fs == ps && fd < pd);
+}
+
+// The merge-path split of diagonal j (how many batch rows are among the
+// first j merged rows): the first a in [max(j - D, 0), min(j, B)] where
+// fresh_first(batch[a], pool[j - 1 - a]) fails.  The warp searches
+// together: 32 lanes probe 32 evenly spaced candidates, and since the
+// probes that hold form a prefix, their count narrows the range to one
+// gap; a range of at most 32 is probed whole.  Every lane returns it.
+__device__ __forceinline__ int warp_split(const int* __restrict__ ps,
+                                          const int* __restrict__ pd,
+                                          const int* __restrict__ fs,
+                                          const int* __restrict__ fd,
+                                          int D, int B, int j) {
+  const int lane = threadIdx.x & 31;
+  int lo = max(j - D, 0), hi = min(j, B);
+  while (lo < hi) {
+    const int span = hi - lo;
+    const bool whole = span <= 32;
+    const int c = whole ? lo + lane : lo + (int)((long long)lane * span >> 5);
+    bool p = false;
+    if (c < hi)
+      p = fresh_first(__ldg(fs + c), __ldg(fd + c), __ldg(ps + j - 1 - c),
+                      __ldg(pd + j - 1 - c));
+    const int k = __popc(__ballot_sync(0xffffffffu, p));
+    if (whole) return lo + k;
+    if (k == 0) return lo;
+    if (k < 32) hi = lo + (int)((long long)k * span >> 5);
+    lo += (int)((long long)(k - 1) * span >> 5) + 1;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(kMergeThreads) merge_pool_sorted_kernel(
     const int* __restrict__ ps, const int* __restrict__ pd,
     const int* __restrict__ pw, const uint8_t* __restrict__ pa,
     const int* __restrict__ fs, const int* __restrict__ fd,
     const int* __restrict__ fw, const uint8_t* __restrict__ fa,
     int* __restrict__ os, int* __restrict__ od, int* __restrict__ ow,
-    uint8_t* __restrict__ oa, int D, int B, int n, int iters) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= D) return;
-  // merge-path diagonal split: a = #fresh rows among the first j merged.
-  // P(a) = fresh[a] < pool[j-1-a] (strict: the pool wins ties) is
-  // monotone in a; find the first a where it fails.
-  int lo = max(j - D, 0);
-  int hi = min(j, B);
-  for (int it = 0; it < iters && lo < hi; ++it) {
+    uint8_t* __restrict__ oa, int D, int B) {
+  // the tile's rows: pool rows at [0, np), batch rows at [np, np + nf);
+  // after the merge, the merged rows in output order
+  __shared__ int s_src[kMergePad], s_dst[kMergePad], s_w[kMergePad],
+      s_al[kMergePad];
+  __shared__ int split[2];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int j0 = blockIdx.x * kMergeTile;
+  const int j1 = min(j0 + kMergeTile, D);
+  if (warp < 2) {
+    const int a = warp_split(ps, pd, fs, fd, D, B, warp ? j1 : j0);
+    if ((tid & 31) == 0) split[warp] = a;
+  }
+  __syncthreads();
+  const int a0 = split[0];
+  // sorted lists give a0 <= a1 <= a0 + (j1 - j0); the clamp keeps an
+  // unsorted list's tile inside its shared arrays
+  const int a1 = min(max(split[1], a0), a0 + (j1 - j0));
+  const int p0 = j0 - a0;
+  const int nf = a1 - a0;
+  const int cnt = j1 - j0;
+  const int np = cnt - nf;
+
+  int r_src[kMergePer], r_dst[kMergePer], r_w[kMergePer], r_al[kMergePer];
+#pragma unroll
+  for (int u = 0; u < kMergePer; ++u) {
+    const int i = tid + u * kMergeThreads;
+    if (i < cnt) {
+      const bool pool = i < np;
+      const int g = pool ? p0 + i : a0 + (i - np);
+      r_src[u] = __ldg((pool ? ps : fs) + g);
+      r_dst[u] = __ldg((pool ? pd : fd) + g);
+      r_w[u] = __ldg((pool ? pw : fw) + g);
+      r_al[u] = __ldg((pool ? pa : fa) + g);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kMergePer; ++u) {
+    const int i = tid + u * kMergeThreads;
+    if (i < cnt) {
+      s_src[pad(i)] = r_src[u];
+      s_dst[pad(i)] = r_dst[u];
+      s_w[pad(i)] = r_w[u];
+      s_al[pad(i)] = r_al[u];
+    }
+  }
+  __syncthreads();
+
+  // this thread's slots [d0, d1) of the tile: its split on diagonal d0,
+  // then a serial merge
+  const int d0 = min(tid * kMergePer, cnt);
+  const int d1 = min(d0 + kMergePer, cnt);
+  int lo = max(d0 - np, 0), hi = min(d0, nf);
+  while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    const int mi = min(max(mid, 0), B - 1);
-    const int pi = min(max(j - 1 - mid, 0), D - 1);
-    const int ms = fs[mi], md = fd[mi];
-    const int qs = ps[pi], qd = pd[pi];
-    if ((ms < qs) || (ms == qs && md < qd)) lo = mid + 1;
+    const int f = pad(np + mid), q = pad(d0 - 1 - mid);
+    if (fresh_first(s_src[f], s_dst[f], s_src[q], s_dst[q])) lo = mid + 1;
     else hi = mid;
   }
-  const int a = lo;
-  const int ip = j - a;
-  const bool a_ok = a < B;
-  const bool p_ok = ip < D;
-  const int as = min(max(a, 0), B - 1);
-  const int qi = min(max(ip, 0), D - 1);
-  const int f_s = fs[as], f_d = fd[as];
-  const int q_s = ps[qi], q_d = pd[qi];
-  const bool fresh_less = (f_s < q_s) || (f_s == q_s && f_d < q_d);
-  const bool take_f = a_ok && (!p_ok || fresh_less);
-  os[j] = take_f ? f_s : (p_ok ? q_s : n);
-  od[j] = take_f ? f_d : (p_ok ? q_d : 0);
-  ow[j] = take_f ? fw[as] : (p_ok ? pw[qi] : 0);
-  oa[j] = take_f ? fa[as] : (p_ok ? pa[qi] : (uint8_t)0);
+  int fi = lo, pi = d0 - lo;
+#pragma unroll
+  for (int u = 0; u < kMergePer; ++u) {
+    if (d0 + u < d1) {
+      const int f = pad(np + fi), q = pad(pi);
+      const bool take_f =
+          fi < nf && (pi >= np || fresh_first(s_src[f], s_dst[f], s_src[q],
+                                              s_dst[q]));
+      const int x = take_f ? f : q;
+      r_src[u] = s_src[x];
+      r_dst[u] = s_dst[x];
+      r_w[u] = s_w[x];
+      r_al[u] = s_al[x];
+      fi += take_f;
+      pi += !take_f;
+    }
+  }
+  __syncthreads();  // every thread has read the rows it merges
+#pragma unroll
+  for (int u = 0; u < kMergePer; ++u) {
+    if (d0 + u < d1) {
+      const int x = pad(d0 + u);
+      s_src[x] = r_src[u];
+      s_dst[x] = r_dst[u];
+      s_w[x] = r_w[u];
+      s_al[x] = r_al[u];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < cnt; i += kMergeThreads) {
+    const int x = pad(i);
+    os[j0 + i] = s_src[x];
+    od[j0 + i] = s_dst[x];
+    ow[j0 + i] = s_w[x];
+    oa[j0 + i] = (uint8_t)s_al[x];
+  }
 }
 
 }  // namespace
@@ -290,16 +419,14 @@ extern "C" int repro_fused_spmv_rows(const void* ell_src,
 extern "C" int repro_merge_pool_sorted(
     const void* ps, const void* pd, const void* pw, const void* pa,
     const void* fs, const void* fd, const void* fw, const void* fa,
-    void* os, void* od, void* ow, void* oa, int D, int B, int n, int iters,
-    void* stream) {
+    void* os, void* od, void* ow, void* oa, int D, int B, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int block = 256;
-  const int grid = (D + block - 1) / block;
+  const int grid = (D + kMergeTile - 1) / kMergeTile;
   if (grid > 0) {
-    merge_pool_sorted_kernel<<<grid, block, 0, s>>>(
+    merge_pool_sorted_kernel<<<grid, kMergeThreads, 0, s>>>(
         (const int*)ps, (const int*)pd, (const int*)pw, (const uint8_t*)pa,
         (const int*)fs, (const int*)fd, (const int*)fw, (const uint8_t*)fa,
-        (int*)os, (int*)od, (int*)ow, (uint8_t*)oa, D, B, n, iters);
+        (int*)os, (int*)od, (int*)ow, (uint8_t*)oa, D, B);
   }
   return (int)cudaGetLastError();
 }

@@ -13,8 +13,8 @@ float lanes of ``spmv_rowsum`` are added left to right.
 
 A wrapper takes the plain version only for tensors on the CPU.  For a
 CUDA tensor it launches the kernel in ``csrc/csr_relax.cu`` or raises.
-``warp_loads`` says which launches of ``spmv_rowsum`` and
-``relax_rowargmin`` load their slots by the warp.
+``warp_loads`` says which launches of the three load their slots by the
+warp.
 ``LAUNCHES`` counts kernel launches, and only those.  They are the
 ``cuda_chained`` engine's sweep; the ``cuda`` engine runs the fused
 kernels of ``kernels/repair.py`` instead.
@@ -46,11 +46,11 @@ def _shape(name: str, ell_src):
 
 
 def warp_loads(ell_src, ell_w=None) -> bool:
-    """Whether ``spmv_rowsum`` (``ell_src`` only) or ``relax_rowargmin``
-    (``ell_w`` too) takes its warp-loaded path for these slots: K = 8,
-    R a multiple of 32 (whole warps of rows) and 16-byte aligned arrays,
-    the test the C entry points make.  Other launches load slot by slot;
-    ``relax_rowmin`` always loads each row by its own thread."""
+    """Whether ``spmv_rowsum`` (``ell_src`` only) or ``relax_rowmin`` and
+    ``relax_rowargmin`` (``ell_w`` too) take their warp-loaded path for
+    these slots: K = 8, R a multiple of 32 (whole warps of rows) and
+    16-byte aligned arrays, the test the C entry points make.  Other
+    launches load slot by slot."""
     R, K = ell_src.shape
     return K == 8 and R % 32 == 0 and all(
         x.data_ptr() % 16 == 0 for x in (ell_src, ell_w) if x is not None)

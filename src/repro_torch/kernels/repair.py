@@ -10,9 +10,11 @@ and the frontier row ids compacted inside each block of ``block`` rows
 float sum of ``vals[src]`` (K lanes added left to right), and the ids of
 the rows that belong to a vertex (``row2dst < n``) compacted per block.
 
-``merge_pool_sorted`` — the ΔG sorted merge for ``update_csr_add``: one
-merge-path binary search per output slot folds the sorted admitted batch
-into the sorted diff pool; the pool wins ties.
+``merge_pool_sorted`` — the ΔG sorted merge for ``update_csr_add``: folds
+the sorted admitted batch into the sorted diff pool along the merge path;
+the pool wins ties.  The plain version runs one binary search per output
+slot; the kernel merges tiles of ``MERGE_TILE`` output slots, one a block,
+staged in shared memory.
 
 The row kernels gather ``vals`` (n+1,) as a JAX gather does: a source id
 outside [0, n] (only an unchecked, admission="off" pool holds one) counts
@@ -24,8 +26,9 @@ use by ``_build``) or raises.  ``LAUNCHES`` counts kernel launches, and
 only those.
 
 ``repair_config`` keeps the reference's row-block heuristic keyed on
-(n, E_cap, K).  The merge kernel has no block knob: one thread per
-output slot, 256 to a block.
+(n, E_cap, K).  The merge kernel has no block knob: its tile is a
+constant of ``csrc/repair.cu`` (``kMergeTile``, repeated here as
+``MERGE_TILE``).
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from repro_torch.tensors import take
 
 ROW_TILE = 128          # ELL row rounding; a block size that always divides R
 DEFAULT_BLOCK = 256     # rows per CUDA block of fused_relax_rows
+MERGE_TILE = 1024       # output slots per CUDA block of merge_pool_sorted
 
 LAUNCHES = {"fused_relax_rows": 0, "fused_spmv_rows": 0,
             "merge_pool_sorted": 0}
@@ -249,7 +253,7 @@ def merge_pool_sorted(d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w,
     err = lib.repro_merge_pool_sorted(
         *(ptr(t) for t in (d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w,
                             f_alive, *out)),
-        D, B, n, _merge_iters(B), _stream(dev))
+        D, B, _stream(dev))
     raise_on(err, "merge_pool_sorted")
     LAUNCHES["merge_pool_sorted"] += 1
     return tuple(out)

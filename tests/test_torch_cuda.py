@@ -11,6 +11,8 @@ flash-attention kernel is held to its plain version within the
 tolerances of tests/test_kernels.py (bf16 3e-2; float32 2e-5 rather than
 1e-5, for the card's expf and another summation order)."""
 import dataclasses
+import pathlib
+import sys
 
 import numpy as np
 import pytest
@@ -25,6 +27,9 @@ from repro_torch.kernels import repair as TK
 from repro_torch.kernels import segment as TS
 from repro_torch.kernels.ell import pack_ell
 from repro_torch.kernels.ref import flash_ref
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (MERGE_CASES and their inputs)
 
 pytestmark = pytest.mark.cuda
 
@@ -92,6 +97,40 @@ def test_merge_kernel_matches_plain(dev, seed, D, B):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("i", range(len(chip_smoke.MERGE_CASES)),
+                         ids=[c[0] for c in chip_smoke.MERGE_CASES])
+def test_merge_kernel_on_merge_cases(dev, i):
+    """chip_smoke.MERGE_CASES (ties whose rows differ, D at and around the
+    tile of MERGE_TILE slots, B above the tile and above D, an empty pool,
+    a batch before or after the whole pool, negative source ids), one
+    launch into outputs filled with junk, bit for bit."""
+    _, D, B, pool_used, batch_used, ties, where = chip_smoke.MERGE_CASES[i]
+    arrays = [torch.from_numpy(x).to(dev) for x in chip_smoke.merge_case(
+        np, i, D, B, pool_used, batch_used, ties, where)]
+    n = chip_smoke.MERGE_N
+    with chip_smoke.junk_outputs(torch):
+        got = launched(TK.LAUNCHES, "merge_pool_sorted",
+                       lambda: TK.merge_pool_sorted(*arrays, n=n))
+    assert_same(got, TK.merge_pool_sorted_plain(*arrays, n),
+                "merge_pool_sorted")
+
+
+@pytest.mark.parametrize("R,warp", [(32 * 1021, True), (32 * 1021 + 7, False),
+                                    (32, True), (31, False)])
+def test_relax_rowmin_by_path(dev, R, warp):
+    """relax_rowmin with K = 8 on its warp-loaded path (R a multiple of 32)
+    and slot by slot (a ragged R: the last warp's rows do not all exist),
+    into outputs filled with junk, bit for bit; vals[n] is no identity,
+    so a padding slot dropped shows."""
+    src, w, _ = row_pack(dev, 3000, R, 8, seed=R)
+    assert TC.warp_loads(src, w) is warp
+    vals, _ = sentinel_vals(dev, 3000, seed=R)
+    with chip_smoke.junk_outputs(torch):
+        got = launched(TC.LAUNCHES, "relax_rowmin",
+                       lambda: TC.relax_rowmin(src, w, vals))
+    assert_same(got, TC.relax_rowmin_plain(src, w, vals), "relax_rowmin")
 
 
 def test_wrappers_refuse_bad_inputs(dev):

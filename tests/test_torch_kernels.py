@@ -6,6 +6,9 @@ tests/test_torch_cuda.py.
 Integer and bool outputs are compared bit for bit.  Float row sums agree
 to rtol 1e-6: the plain versions add the K lanes left to right, the
 Pallas kernels in whatever order XLA's reduction takes."""
+import pathlib
+import sys
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -28,6 +31,9 @@ from repro_torch.tensors import segment_sum
 from repro_torch.kernels import ell as tell
 from repro_torch.kernels.ell import pack_ell as t_pack_ell
 
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (MERGE_CASES and their inputs)
 
 R_PACK = jax.jit(r_pack_ell, static_argnames=("k",))
 
@@ -251,6 +257,48 @@ def test_merge_plain_matches_pallas(seed):
         w = np.array(w)
         assert g.dtype == torch.from_numpy(w).dtype
         assert np.array_equal(g.numpy(), w)
+
+
+# chip_smoke.MERGE_CASES small enough for interpret mode (D and B up to
+# 5,000): ties whose rows differ, D at and around the kernel's tile of
+# 2,048 slots, B above D, an empty pool, a batch before or after the whole
+# pool, negative source ids
+SMALL_MERGE = [i for i, (_, D, B, *_) in enumerate(chip_smoke.MERGE_CASES)
+               if D <= 5000 and B <= 5000]
+
+
+@pytest.mark.parametrize("i", SMALL_MERGE,
+                         ids=[chip_smoke.MERGE_CASES[i][0]
+                              for i in SMALL_MERGE])
+def test_merge_plain_matches_pallas_on_merge_cases(i):
+    """The inputs chip_smoke.check_merge holds the CUDA kernel to on the
+    card, through the plain version and repro's Pallas merge."""
+    _, D, B, pool_used, batch_used, ties, where = chip_smoke.MERGE_CASES[i]
+    arrays = chip_smoke.merge_case(np, i, D, B, pool_used, batch_used, ties,
+                                   where)
+    n = chip_smoke.MERGE_N
+    want = RK.merge_pool_sorted(*[jnp.asarray(a) for a in arrays], n=n)
+    got = TK.merge_pool_sorted(*[torch.from_numpy(a) for a in arrays], n=n)
+    for g, w in zip(got, want):
+        w = np.array(w)
+        assert g.dtype == torch.from_numpy(w).dtype
+        assert np.array_equal(g.numpy(), w)
+
+
+def test_merge_ties_go_to_the_pool():
+    """Where a batch key equals a pool key, the pool's row comes first:
+    its w and alive, then the batch's."""
+    n = 10
+    pool = [np.array(x, np.int32) for x in ([1, 2, 3, n], [5, 5, 5, 0],
+                                            [11, 12, 13, 0])]
+    pool.append(np.array([True, False, True, False]))
+    fresh = [np.array(x, np.int32) for x in ([2, 3], [5, 5], [21, 22])]
+    fresh.append(np.array([True, True]))
+    got = TK.merge_pool_sorted(*[torch.from_numpy(a) for a in pool + fresh],
+                               n=n)
+    assert got[0].tolist() == [1, 2, 2, 3]
+    assert got[2].tolist() == [11, 12, 21, 13]
+    assert got[3].tolist() == [True, False, True, True]
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2, 3])

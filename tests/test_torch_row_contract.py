@@ -5,8 +5,8 @@ interpret mode on packs with padding slots, vacant rows and a vals[n]
 that is no identity, and against a numpy statement of the contract (the
 left-to-right float sum, the row argmin's sentinel rule, the per-tile
 compaction).  Also the tile the wrappers choose, and which launches take
-the kernels' warp-loaded path (the fused kernels', and the chained
-spmv_rowsum's and relax_rowargmin's).
+the kernels' warp-loaded path (the fused kernels', and the three chained
+kernels').
 
 Integer outputs, the compacted rows and the counts are compared bit for
 bit; the float row sums agree with the Pallas kernel to rtol 1e-6 (XLA's
@@ -257,14 +257,25 @@ def test_warp_loaded_path_by_K_and_alignment(K, src_off, w_off, relax, spmv):
     (16, 256, 0, 0, False, False)])
 def test_chained_warp_loaded_path_by_K_R_and_alignment(K, R, src_off, w_off,
                                                        relax, spmv):
-    """spmv_rowsum and relax_rowargmin take their warp-loaded path only for
-    K = 8, R a multiple of 32 (whole warps of rows, which the chained
-    kernels' any-R launches need before their shuffles) and 16-byte
-    aligned slots (ell_src, and ell_w for relax_rowargmin)."""
+    """The chained kernels take their warp-loaded path only for K = 8, R a
+    multiple of 32 (whole warps of rows, which their any-R launches need
+    before their shuffles) and 16-byte aligned slots: ell_src for
+    spmv_rowsum (``spmv``); ell_src and ell_w for relax_rowmin and
+    relax_rowargmin (``relax``), which test them alike
+    (csrc/csr_relax.cu: warp8(K, R, ell_src, ell_w) in both entry
+    points)."""
     src = _view(torch.zeros((R, K), dtype=torch.int32), src_off)
     w = _view(torch.zeros((R, K), dtype=torch.int32), w_off)
     assert TC.warp_loads(src, w) is relax
     assert TC.warp_loads(src) is spmv
+    cu = (TC._build.CSRC / "csr_relax.cu").read_text()
+    for entry in ("repro_relax_rowmin", "repro_relax_rowargmin"):
+        body = cu[cu.index(f"int {entry}("):]
+        body = body[:body.index("return (int)cudaGetLastError();")]
+        assert "if (warp8(K, R, ell_src, ell_w)) {" in body, entry
+    body = cu[cu.index("int repro_spmv_rowsum("):]
+    assert "if (warp8(K, R, ell_src, ell_src)) {" in body[:body.index(
+        "return (int)cudaGetLastError();")]
 
 
 @pytest.mark.parametrize("offset", [1, 3])
