@@ -4,6 +4,7 @@
     python3 chip_smoke.py                 # RMAT scale 22, degree 16, 1% updates
     python3 chip_smoke.py --scale 16      # a quick, small run
     python3 chip_smoke.py --profile       # + a torch.profiler breakdown
+    python3 chip_smoke.py --tc-log2 16    # a smaller uniform TC graph
 
 Phases (any failure exits non-zero):
 
@@ -26,8 +27,34 @@ Phases (any failure exits non-zero):
       must launch), then PageRank on it (``spmv_rowsum`` and
       ``segment_sum_sorted`` must launch); neither runs a fused kernel
       or the other algorithm's chained kernels.
+   d. Triangle counting on its own graph, the reference's TC family: a
+      uniform graph of 2^20 vertices and degree 8, self-loops dropped,
+      symmetrized (16,777,040 edge lanes, max degree 39), with 0.4%
+      updates made symmetric in pairs, in batches of 65,536.
+      ``static_tc``, then ``dyn_tc`` through ``bind_graph(...).call`` and
+      ``stream_step`` through ``run_stream``, on ``cuda``: only
+      ``merge_pool_sorted`` launches, once per add batch.  The counts
+      (int32) equal the ``torch`` backend's, ``cuda_chained``'s, the
+      DSL's ``DynTC`` (phase e) and scipy's exact count over the edge
+      sets; a symmetrized ``rmat_graph(14, 16)`` with 1% updates is
+      checked against scipy too, not timed.
+   e. The DSL on the card, after step 4's checks (it reuses their
+      references): ``repro_torch.compile`` of ``sssp.sp`` bound on
+      ``cuda`` runs ``DynSSSP`` one-shot over the same graph and stream
+      (``dist`` equal to 2a's bit for bit) and armed (``run`` without the
+      stream, then the stream through ``apply``; equal to one-shot);
+      ``DynPR`` armed and one-shot, bit-identical, within step 4's
+      bounds of the float64 PageRank; ``merge_pool_sorted`` launches per
+      add batch, ``segment_sum_sorted`` in PageRank, no row kernel (DSL
+      sweeps declare no gather form, as in the reference).  An armed
+      ``DynSSSP`` at RMAT scale 16, in batches of 2,048, is saved midway
+      into a temporary directory, restored and finished: ``dist`` and
+      every DynGraph and ELL array equal the uninterrupted run's.
    The ``torch`` backend's runs (step 4) launch no kernel but the float
-   segment sum.
+   segment sum.  Each window of 2d and 2e prints its wall time, launches
+   and peak memory; each kernel's JSON record lists its launches by
+   window (``launches_by_path``; the LM prefill and decode are windows
+   too).
 3. Kernels against their plain PyTorch versions on the card, at the
    shapes of those runs, bit for bit (float row sums too: both add in one
    fixed order), with their times beside the bound (bytes each input read
@@ -536,6 +563,7 @@ def drive(torch, repro_torch, counts, csr, stream, tag, backend, static,
     sess, props, times = run_path(repro_torch, csr, stream, backend, static,
                                   step, clock)
     launches = counts.read()
+    WINDOWS[tag], TIMES[tag] = launches, times
     ups = (stream.num_adds + stream.num_dels) / times[2]
     log(f"[{tag}] prepare {times[0]:.3f} s | static {times[1]:.3f} s | "
         f"stream {times[2]:.3f} s ({ups:.0f} updates/s) | launches "
@@ -573,14 +601,22 @@ def profile_window(torch, tag, fn):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [r for r in prof.key_averages() if r.device_type != DeviceType.CPU]
+    avgs = prof.key_averages()
+    rows = [r for r in avgs if r.device_type != DeviceType.CPU]
     dev_us = lambda r: getattr(r, "self_device_time_total",
                                getattr(r, "self_cuda_time_total", 0))
     busy = sum(dev_us(r) for r in rows) / 1e6
     launches = sum(r.count for r in rows)
+    # host syncs: the runtime's stream synchronizations (each device-to-
+    # host read and each copy from pageable host memory waits on one),
+    # less the window's own closing synchronize
+    calls = {r.key: r.count for r in avgs if r.device_type == DeviceType.CPU}
+    syncs = calls.get("cudaStreamSynchronize", 0) + \
+        calls.get("cudaDeviceSynchronize", 0) - 1
     log(f"[profile] {tag}: wall {wall:.3f} s, device busy {busy:.3f} s "
         f"({100 * busy / wall:.1f}%), {launches} kernel launches of "
-        f"{len(rows)} kinds")
+        f"{len(rows)} kinds, {syncs} host syncs "
+        f"({calls.get('aten::_local_scalar_dense', 0)} scalar reads)")
     for r in sorted(rows, key=dev_us, reverse=True)[:12]:
         log(f"[profile]   {dev_us(r) / 1e3:10.2f} ms  {r.count:6d} calls"
             f"  {r.key[:100]}")
@@ -841,6 +877,7 @@ def lm_phase(torch, args, counts, FA) -> dict:
     with clock() as t_cold:
         logits, caches = serve.prefill(model, prompts, P + G)
     pre = counts.read()
+    WINDOWS["lm prefill"] = pre
     if pre["flash_attention"] != cfg.n_layers:
         raise AssertionError(f"flash_attention launched "
                              f"{pre['flash_attention']} times in a prefill "
@@ -850,6 +887,7 @@ def lm_phase(torch, args, counts, FA) -> dict:
     with clock() as t_dec:
         toks = serve.decode(model, logits, caches, P, G)
     dec = counts.read()
+    WINDOWS["lm decode"] = dec
     require(dec, silent=list(dec))
     peak = torch.cuda.max_memory_allocated() / 2**30
     if toks.shape != (B, G) or not bool(((toks >= 0) & (toks < cfg.vocab))
@@ -957,14 +995,386 @@ def lm_phase(torch, args, counts, FA) -> dict:
     return check_flash(torch, args, flush, FA, pre["flash_attention"])
 
 
+# Triangle counting (phase 2d): the reference's TC family
+# (benchmarks/dynamic_vs_static.py: run_tc), a uniform graph with its
+# self-loops dropped, symmetrized, and updates made symmetric in pairs;
+# wedge enumeration costs O(E * max degree), which is why the paper's TC
+# times out on skewed graphs.  The skewed RMAT check is run, not timed.
+TC_DEGREE, TC_PERCENT, TC_SEEDS = 8, 0.4, (2, 3)
+TC_SKEWED = (14, 16, 1.0)          # rmat scale, degree, percent updated
+# save and restore (phase 2e): an armed DynSSSP at this scale, saved
+# after half of its batches of this size
+SAVE_SCALE, SAVE_BATCH = 16, 2048
+# every window's launches, by tag (the kernels' JSON records carry them)
+WINDOWS = {}
+TIMES = {}
+
+
+def window(torch, counts, tag, fn, launched=(), silent=(), merges=None):
+    """``fn()`` in a window of its own: every launch count and the peak
+    memory reset just before it and read just after; prints its wall time,
+    launches and peak memory, checks which kernels it ran (``merges``:
+    the exact number of ``merge_pool_sorted`` launches) and returns
+    (fn's result, launches, seconds)."""
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    with Timer(torch) as t:
+        out = fn()
+    launches = counts.read()
+    WINDOWS[tag] = launches
+    log(f"[{tag}] {t.s:.3f} s | launches "
+        f"{ {k: v for k, v in launches.items() if v} } | peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    require(launches, launched, tuple(silent) + ("flash_attention",))
+    if merges is not None and launches["merge_pool_sorted"] != merges:
+        raise AssertionError(f"[{tag}] merge_pool_sorted launched "
+                             f"{launches['merge_pool_sorted']} times for "
+                             f"{merges} add batches")
+    return out, launches, t.s
+
+
+def sym_stream(np, repro_torch, ups):
+    """An update stream with both directions of each update side by side
+    (as run_tc makes them), so an even batch size never splits a pair."""
+    adds = np.stack([ups.adds, ups.adds[:, [1, 0, 2]]], 1).reshape(-1, 3)
+    dels = np.stack([ups.dels, ups.dels[:, [1, 0]]], 1).reshape(-1, 2)
+    return repro_torch.UpdateStream(adds=adds, dels=dels)
+
+
+def tc_graph(np, repro_torch, kind, log2):
+    """The symmetrized TC graph and its paired update stream: ``uniform``
+    is uniform_graph(2^log2, 8, seed=2) with 0.4% updates (seed 3),
+    ``skewed`` rmat_graph(14, 16, seed=0) with 1% (seed 3)."""
+    from repro_torch.algos.oracles import symmetrize
+    from repro_torch.graph.csr import uniform_graph
+    if kind == "uniform":
+        n, edges, w = uniform_graph(1 << log2, TC_DEGREE, seed=TC_SEEDS[0])
+        percent = TC_PERCENT
+    else:
+        n, edges, w = repro_torch.rmat_graph(TC_SKEWED[0], TC_SKEWED[1],
+                                             seed=0)
+        percent = TC_SKEWED[2]
+    keep = edges[:, 0] != edges[:, 1]
+    e, w2 = symmetrize(edges[keep], w[keep])
+    csr = repro_torch.build_csr(n, e, w2, device=DEV)
+    ups = repro_torch.random_updates(csr, percent=percent, seed=TC_SEEDS[1])
+    return csr, sym_stream(np, repro_torch, ups)
+
+
+def tc_edges_after(np, csr, stream):
+    """(src, dst) of the edge set (base − dels) ∪ adds, each key once."""
+    n = csr.n
+    s, d = csr.src.cpu().numpy(), csr.dst.cpu().numpy()
+    keys = s.astype(np.int64) * n + d
+    dk = stream.dels[:, 0].astype(np.int64) * n + stream.dels[:, 1]
+    ak = stream.adds[:, 0].astype(np.int64) * n + stream.adds[:, 1]
+    keys = np.unique(np.concatenate([keys[~np.isin(keys, dk)], ak]))
+    return keys // n, keys % n
+
+
+def scipy_triangles(np, n, s, d) -> int:
+    """Exact triangles of a symmetric edge set: with L its strictly lower
+    triangle, each triangle k > j > i is one nonzero product of
+    (L @ L) .* L."""
+    from scipy.sparse import csr_matrix
+    low = s > d
+    L = csr_matrix((np.ones(int(low.sum()), np.int64), (s[low], d[low])),
+                   shape=(n, n))
+    return int((L @ L).multiply(L).sum())
+
+
+def tc_phase(torch, np, repro_torch, counts, args, silent) -> dict:
+    """Phase 2d: triangle counting on cuda (static_tc, then dyn_tc through
+    ``bind_graph(...).call`` and through ``run_stream``), against the torch
+    backend, cuda_chained and scipy; the DSL's DynTC on the same graph
+    (phase 2e); the skewed RMAT check.  Returns the counts."""
+    from repro_torch import dsl_programs
+    from repro_torch.algos import triangles
+    t0 = time.perf_counter()
+    csr, stream = tc_graph(np, repro_torch, "uniform", args.tc_log2)
+    n, nb = csr.n, stream.num_batches(BATCH)
+    deg = (csr.offsets[1:] - csr.offsets[:-1]).max().item()
+    log(f"[tc graph] uniform 2^{args.tc_log2} degree {TC_DEGREE}, "
+        f"symmetrized: n={n} E={csr.num_edges} max degree {deg} | stream: "
+        f"{stream.num_adds} add lanes, {stream.num_dels} del lanes, {nb} "
+        f"batches of {BATCH} | generation {time.perf_counter() - t0:.2f} s")
+    cap = 2 * stream.num_adds
+
+    def bind(backend):
+        sess = repro_torch.bind_graph(csr, backend=backend, capacity=cap,
+                                      device=DEV)
+        sess.handle
+        return sess
+
+    def static_then_dyn(backend):
+        sess = bind(backend)
+        with Timer(torch) as t_static:
+            c0 = sess.call(triangles.static_tc)
+        with Timer(torch) as t_dyn:
+            c1 = sess.call(triangles.dyn_tc, stream, BATCH, count=c0)
+        TIMES[f"tc {backend}"] = (t_static.s, t_dyn.s)
+        return sess, c0, c1
+
+    (sess, c0, c1), _, _ = window(
+        torch, counts, "tc cuda: static_tc, dyn_tc", lambda:
+        static_then_dyn("cuda"), silent=silent, merges=nb)
+    t_static, t_dyn = TIMES["tc cuda"]
+    log(f"[tc cuda] static_tc {t_static:.3f} s, dyn_tc {t_dyn:.3f} s "
+        f"({t_dyn / nb:.3f} s a batch); triangles {int(c0)} -> {int(c1)} "
+        f"({c1.dtype}); max-degree reads {sess.engine.deg_syncs}")
+    if c0.dtype != torch.int32 or c1.dtype != torch.int32:
+        raise AssertionError("TC counts are not int32")
+
+    def streamed():
+        s2 = bind("cuda")
+        with Timer(torch) as t_static:
+            c = s2.call(triangles.static_tc)
+        with Timer(torch) as t_stream:
+            c = s2.run_stream(stream, BATCH, triangles.stream_step, c)
+        TIMES["tc cuda stream"] = (t_static.s, t_stream.s)
+        return c
+
+    c2, _, _ = window(torch, counts, "tc cuda: static_tc, run_stream",
+                      streamed, silent=silent, merges=nb)
+    log(f"[tc cuda] run_stream {TIMES['tc cuda stream'][1]:.3f} s "
+        f"({TIMES['tc cuda stream'][1] / nb:.3f} s a batch)")
+    if args.profile:
+        prof = bind("cuda")
+        c = profile_window(torch, "tc static_tc",
+                           lambda: prof.call(triangles.static_tc))
+        profile_window(torch, "tc stream", lambda: prof.run_stream(
+            stream, BATCH, triangles.stream_step, c))
+        del prof
+    for backend in ("torch", "cuda_chained"):
+        (_, b0, b1), _, _ = window(
+            torch, counts, f"tc {backend}: static_tc, dyn_tc",
+            lambda b=backend: static_then_dyn(b), silent=silent,
+            merges=0)
+        if (int(b0), int(b1)) != (int(c0), int(c1)):
+            raise AssertionError(f"TC on {backend} counts {int(b0)} -> "
+                                 f"{int(b1)}, cuda {int(c0)} -> {int(c1)}")
+    if int(c2) != int(c1):
+        raise AssertionError(f"TC run_stream {int(c2)} != dyn_tc {int(c1)}")
+    del sess
+    torch.cuda.empty_cache()
+
+    # the DSL's DynTC on the same graph and stream (phase 2e)
+    prog = repro_torch.compile(dsl_programs.path("tc"))
+    res, _, t_dsl = window(
+        torch, counts, "tc dsl cuda: DynTC", lambda: prog.bind(
+            csr, backend="cuda", capacity=cap, device=DEV).run(
+            "DynTC", updateBatch=stream, batchSize=BATCH),
+        silent=silent, merges=nb)
+    log(f"[tc dsl cuda] DynTC {t_dsl:.3f} s ({t_dsl / (t_static + t_dyn):.2f}"
+        f"x the hand-staged static_tc + dyn_tc); count {int(res.value)}")
+    if int(res.value) != int(c1) or res.value.dtype != torch.int32:
+        raise AssertionError(f"DSL DynTC {res.value} != hand-staged "
+                             f"{int(c1)}")
+    del res
+
+    with Timer(torch) as t_ref:
+        s, d = csr.src.cpu().numpy(), csr.dst.cpu().numpy()
+        want0 = scipy_triangles(np, n, s, d)
+        want1 = scipy_triangles(np, n, *tc_edges_after(np, csr, stream))
+    if (int(c0), int(c1)) != (want0, want1):
+        raise AssertionError(f"TC counts {int(c0)} -> {int(c1)}, scipy "
+                             f"{want0} -> {want1}")
+    log(f"[check] TC: static and final counts ({want0} -> {want1}) equal "
+        f"on cuda, torch, cuda_chained, run_stream, the DSL and scipy "
+        f"({t_ref.s:.1f} s)")
+    del csr, stream
+    torch.cuda.empty_cache()
+
+    # skewed: checked, not timed
+    t0 = time.perf_counter()
+    csr, stream = tc_graph(np, repro_torch, "skewed", None)
+    deg = (csr.offsets[1:] - csr.offsets[:-1]).max().item()
+    sess = repro_torch.bind_graph(csr, backend="cuda",
+                                  capacity=2 * stream.num_adds, device=DEV)
+    k0 = sess.call(triangles.static_tc)
+    k1 = sess.call(triangles.dyn_tc, stream, BATCH, count=k0)
+    s, d = csr.src.cpu().numpy(), csr.dst.cpu().numpy()
+    want = (scipy_triangles(np, csr.n, s, d),
+            scipy_triangles(np, csr.n, *tc_edges_after(np, csr, stream)))
+    if (int(k0), int(k1)) != want:
+        raise AssertionError(f"skewed TC counts {int(k0)} -> {int(k1)}, "
+                             f"scipy {want}")
+    log(f"[check] TC on symmetrized rmat {TC_SKEWED[0]} (E={csr.num_edges}, "
+        f"max degree {deg}, {stream.num_adds} add lanes): {want[0]} -> "
+        f"{want[1]} triangles, equal to scipy "
+        f"({time.perf_counter() - t0:.1f} s)")
+    del sess, csr, stream
+    torch.cuda.empty_cache()
+    return {"static": int(c0), "final": int(c1)}
+
+
+def dsl_phase(torch, np, repro_torch, counts, args, csr, stream, sssp_cuda,
+              pr_ref, statics, silent) -> None:
+    """Phase 2e: the DSL on the card — DynSSSP one-shot and armed against
+    the hand-staged cuda run, DynPR twice against the float64 reference,
+    and an armed DynSSSP saved and restored at ``SAVE_SCALE``.  A DSL
+    prologue is timed against a warm hand-staged static run (``statics``,
+    each program's second on this graph), a DSL stream against step 2's
+    hand-staged stream."""
+    import tempfile
+    from repro_torch import dsl_programs
+    nb = stream.num_batches(BATCH)
+    cap = 2 * stream.num_adds
+    prog = repro_torch.compile(dsl_programs.path("sssp"))
+
+    def bind(p):
+        sess = p.bind(csr, backend="cuda", capacity=cap, device=DEV)
+        sess.handle
+        return sess
+
+    def warm_static(static):
+        sess = repro_torch.bind_graph(csr, backend="cuda", capacity=cap,
+                                      device=DEV)
+        sess.handle
+        with Timer(torch) as t:
+            sess.call(*static)
+        return t.s
+
+    warm = [warm_static(st) for st in statics]
+    torch.cuda.empty_cache()
+
+    one, _, t_one = window(
+        torch, counts, "dsl sssp cuda: DynSSSP one-shot", lambda: bind(
+            prog).run("DynSSSP", updateBatch=stream, batchSize=BATCH, src=0),
+        silent=silent, merges=nb)
+    if not torch.equal(one.props["dist"], sssp_cuda["dist"]):
+        raise AssertionError("DSL DynSSSP dist differs from the hand-staged "
+                             "cuda run")
+
+    def armed(p, run_args):
+        sess = bind(p)
+        with Timer(torch) as t_pro:
+            sess.run(**run_args)
+        with Timer(torch) as t_stream:
+            sess.run_stream(stream, BATCH)
+        TIMES[f"dsl {run_args['func']}"] = (t_pro.s, t_stream.s)
+        return sess
+
+    arm, _, _ = window(torch, counts, "dsl sssp cuda: DynSSSP armed",
+                       lambda: armed(prog, dict(func="DynSSSP",
+                                                batchSize=BATCH, src=0)),
+                       silent=silent, merges=nb)
+    for k, v in one.props.items():
+        if not torch.equal(arm.props[k], v):
+            raise AssertionError(f"armed DynSSSP differs from one-shot in {k}")
+    pro, st = TIMES["dsl DynSSSP"]
+    hand = TIMES["sssp cuda"]
+    log(f"[dsl sssp cuda] one-shot {t_one:.3f} s; armed: prologue "
+        f"{pro:.3f} s, stream {st:.3f} s ({st / nb:.3f} s a batch) against "
+        f"hand-staged warm static {warm[0]:.3f} s (first run "
+        f"{hand[1]:.3f} s), stream {hand[2]:.3f} s: {pro / warm[0]:.2f}x / "
+        f"{st / hand[2]:.2f}x")
+    log("[check] DSL DynSSSP dist equals the hand-staged cuda run; armed "
+        "applies equal the one-shot run (dist, parent, modified)")
+    if args.profile:
+        prof = bind(prog)
+        profile_window(torch, "dsl sssp prologue", lambda: prof.run(
+            "DynSSSP", batchSize=BATCH, src=0))
+        profile_window(torch, "dsl sssp stream",
+                       lambda: prof.run_stream(stream, BATCH))
+        del prof
+    del one, arm
+    torch.cuda.empty_cache()
+
+    prog = repro_torch.compile(dsl_programs.path("pagerank"))
+    beta, delta, max_iter = PR_KNOBS
+    knobs = dict(batchSize=BATCH, beta=beta, delta=delta, maxIter=max_iter)
+    arm, _, _ = window(torch, counts, "dsl pagerank cuda: DynPR armed",
+                       lambda: armed(prog, dict(func="DynPR", **knobs)),
+                       launched=("segment_sum_sorted",), silent=silent,
+                       merges=nb)
+    one, _, t_one = window(
+        torch, counts, "dsl pagerank cuda: DynPR one-shot", lambda: bind(
+            prog).run("DynPR", updateBatch=stream, **knobs),
+        launched=("segment_sum_sorted",), silent=silent, merges=nb)
+    pr = one.props["pageRank"]
+    if not torch.equal(arm.props["pageRank"], pr):
+        raise AssertionError("two DSL DynPR runs differ")
+    pro, st = TIMES["dsl DynPR"]
+    hand = TIMES["pagerank cuda"]
+    log(f"[dsl pagerank cuda] one-shot {t_one:.3f} s; armed: prologue "
+        f"{pro:.3f} s, stream {st:.3f} s ({st / nb:.3f} s a batch) against "
+        f"hand-staged warm static {warm[1]:.3f} s (first run "
+        f"{hand[1]:.3f} s), stream {hand[2]:.3f} s: {pro / warm[1]:.2f}x / "
+        f"{st / hand[2]:.2f}x")
+    got = pr.cpu().numpy().astype(np.float64)
+    l1 = float(np.abs(got - pr_ref).sum())
+    l1_bound = (1 + 2 * nb) * beta / (1 - delta)
+    log(f"[check] DSL DynPR: two runs bit-identical; vs float64 scipy: L1 "
+        f"{l1:.3e} (bound {l1_bound:.3e}), max |d| "
+        f"{np.abs(got - pr_ref).max():.3e}")
+    if not l1 <= l1_bound:
+        raise AssertionError(f"DSL PageRank L1 error {l1} above its bound "
+                             f"{l1_bound}")
+    top = np.argsort(pr_ref)[-1000:]
+    np.testing.assert_allclose(got[top], pr_ref[top], rtol=5e-2, atol=0,
+                               err_msg="DSL PageRank's top 1,000 vertices")
+    del one, arm, pr
+    torch.cuda.empty_cache()
+
+    # save midway and restore, at SAVE_SCALE in batches of SAVE_BATCH
+    n, edges, w = repro_torch.rmat_graph(SAVE_SCALE, DEGREE, seed=0)
+    small = repro_torch.build_csr(n, edges, w, device=DEV)
+    ups = repro_torch.random_updates(small, percent=PERCENT, seed=1)
+    batches = list(ups.batches(SAVE_BATCH, device=DEV))
+    k = len(batches) // 2
+    prog = repro_torch.compile(dsl_programs.path("sssp"))
+
+    def armed_on(bs):
+        sess = prog.bind(small, backend="cuda", capacity=2 * ups.num_adds,
+                         device=DEV)
+        sess.run("DynSSSP", batchSize=SAVE_BATCH, src=0)
+        for b in bs:
+            sess.apply(b)
+        return sess
+
+    def save_restore():
+        with tempfile.TemporaryDirectory() as d:
+            armed_on(batches[:k]).save(d)
+            back = repro_torch.restore_session(d, device=DEV)
+        if not (back.armed and back.stream_cursor == k):
+            raise AssertionError("restore did not re-arm at the saved batch")
+        for b in batches[k:]:
+            back.apply(b)
+        return back
+
+    back, _, t_sr = window(torch, counts, "dsl save/restore", save_restore,
+                           silent=silent)
+    full = armed_on(batches)
+    for key, v in full.props.items():
+        if not torch.equal(back.props[key], v):
+            raise AssertionError(f"restored DynSSSP differs in {key}")
+    for part in ("g", "ell"):
+        a, b = getattr(full.handle, part), getattr(back.handle, part)
+        for f, x in vars(a).items():
+            if isinstance(x, torch.Tensor) and not torch.equal(
+                    x, getattr(b, f)):
+                raise AssertionError(f"restored DynSSSP differs in "
+                                     f"{part}.{f}")
+    log(f"[check] DSL save after {k} of {len(batches)} batches of "
+        f"{SAVE_BATCH} (rmat {SAVE_SCALE}, E={small.num_edges}), restore, "
+        f"finish: dist, parent, modified, every DynGraph array and the ELL "
+        f"pack bit-identical to the uninterrupted run ({t_sr:.2f} s)")
+    del back, full, small
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--tc-log2", type=int, default=20,
+                    help="log2 of the vertices of the uniform TC graph")
     ap.add_argument("--profile", action="store_true",
-                    help="rerun the cuda paths and the LM prefill and "
+                    help="rerun the cuda paths (TC and the DSL's "
+                         "DynSSSP among them) and the LM prefill and "
                          "decode under torch.profiler and print where the "
-                         "device time goes")
+                         "device time goes and the host syncs")
     args = ap.parse_args(argv)
 
     import torch
@@ -1203,6 +1613,11 @@ def main(argv=None) -> int:
 
     mark("cuda_chained")
 
+    # 2d. triangle counting on its own graph
+    tc_phase(torch, np, repro_torch, counts, args,
+             silent=ROW_KERNELS + ("segment_sum_sorted",))
+    mark("triangle counting")
+
     # -- 4. correctness ------------------------------------------------------
     tsess, tprops, _ = drive(
         torch, repro_torch, counts, csr, stream, "sssp torch", "torch",
@@ -1287,6 +1702,11 @@ def main(argv=None) -> int:
     mark("scipy PageRank")
     log("[check] PageRank's top 1,000 vertices within rtol 5e-2")
 
+    # 2e. the DSL on the card, held to the references of step 4
+    dsl_phase(torch, np, repro_torch, counts, args, csr, stream, sssp_cuda,
+              ref, (sssp_static, pr_static), silent=ROW_KERNELS)
+    mark("dsl")
+
     # -- 5. LM serving -------------------------------------------------------
     del csr, stream, post, sssp_cuda, pr_cuda, g
     torch.cuda.empty_cache()
@@ -1296,6 +1716,10 @@ def main(argv=None) -> int:
     log("[time] " + " | ".join(f"{b[0]} {b[1] - a[1]:.1f} s"
                                for a, b in zip(stamps, stamps[1:])))
 
+    for rec in kernels:
+        rec["launches_by_path"] = {tag: w[rec["name"]]
+                                   for tag, w in WINDOWS.items()
+                                   if w.get(rec["name"])}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,26 @@
-"""The public session API for hand-staged algorithms (counterpart of the
-``bind_graph`` half of ``repro.api``).
+"""The public API: compile a DSL program once, bind it to a backend, keep
+graph state resident on the card across calls (counterpart of
+``repro.api``).
 
     import repro_torch
+    from repro_torch import dsl_programs
+
+    prog = repro_torch.compile(dsl_programs.path("sssp"))
+    sess = prog.bind(csr, backend="cuda")
+    res = sess.run("DynSSSP", updateBatch=stream, batchSize=65536, src=0)
+    res.props["dist"]          # device tensor, no host sync
+    res.to_host()["dist"]      # explicit numpy readback
+
+    # armed: omit the stream, then feed ΔG batches as they arrive
+    sess = prog.bind(csr, backend="cuda")
+    sess.run("DynSSSP", batchSize=65536, src=0)
+    for batch in live_feed:
+        sess.apply(batch)
+    sess.save(ckpt_dir)        # restore_session(ckpt_dir) resumes it
+
+Hand-staged algorithms (``repro_torch.algos``) ride the same sessions
+through ``bind_graph``:
+
     from repro_torch.algos import sssp
 
     csr = repro_torch.build_csr(n, edges, w)              # on the card
@@ -11,40 +30,84 @@
     props = sess.run_stream(stream, 65536, sssp.stream_step, props)
     sess.to_host()["dist"]                                 # explicit sync
 
-PageRank runs the same way (``algos.pagerank.static_pr`` and
-``make_stream_step``); ``backend`` is ``"cuda"``, ``"cuda_chained"`` or
+PageRank and triangle counting run the same way (``algos.pagerank``,
+``algos.triangles``); ``backend`` is ``"cuda"``, ``"cuda_chained"`` or
 ``"torch"``.
 
 A session owns one engine and its device-resident graph handle.  Every
 ΔG batch passes the admission guard first (default ``clamp``); a batch
 that overflows the diff pool rolls back, grows the pool and replays.
 Entry points run on the card unless ``device="cpu"`` is asked for.
-
-Checkpoints (``save``/``restore``), backend failover and the divergence
-watchdog wait for later slices; ``failover=`` other than ``None``
-raises ``NotImplementedError``.
+Checkpoints share ``repro``'s layout and state kinds: a checkpoint that
+``repro`` wrote names its backend ``jnp`` or ``pallas``, so
+``restore_session`` takes ``backend="torch"`` or ``"cuda"`` for it.
+Backend failover waits for a later slice; ``failover=`` other than
+``None`` raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
+import pathlib
+import threading
 from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Union
 
-from repro_torch.core.engine import Engine, props_from_numpy
+import numpy as np
+import torch
+
+from repro_torch.ckpt import checkpoint as ckpt
+from repro_torch.core.dsl.codegen import (ArmedRun, CodegenError, Program,
+                                          compile_source)
+from repro_torch.core.engine import Engine, props_from_numpy, state_to_csr
 from repro_torch.core.registry import (available_backends, make_engine,
                                        register_engine)
 from repro_torch.graph.csr import CSR
 from repro_torch.graph.updates import UpdateBatch, UpdateStream
+from repro_torch.runtime import watchdog as _watchdog
 from repro_torch.runtime.admission import DEFAULT_MAX_BATCH, AdmissionGuard
 from repro_torch.runtime.errors import (AdmissionError, DivergenceError,
                                         PoolOverflowError)
 from repro_torch.runtime.health import SessionHealth
+from repro_torch.tensors import to_device
 
 __all__ = [
-    "GraphSession", "bind_graph", "PropertyView", "register_engine",
-    "available_backends", "props_from_numpy", "AdmissionError",
-    "PoolOverflowError", "SessionHealth",
+    "compile", "CompiledProgram", "Session", "GraphSession", "bind_graph",
+    "SessionResult", "PropertyView", "register_engine",
+    "available_backends", "restore_session", "props_from_numpy",
+    "AdmissionError", "PoolOverflowError", "DivergenceError",
+    "SessionHealth",
 ]
 
 _DEFAULT_CAPACITY = 64
+
+# a compile miss is not atomic: two threads binding the same program
+# would race compile_source and get two CompiledPrograms; serialize misses
+_COMPILE_LOCK = threading.Lock()
+
+
+@functools.lru_cache(maxsize=256)
+def _compile_once(source_or_path: str, stamp) -> "CompiledProgram":
+    return CompiledProgram(compile_source(source_or_path))
+
+
+def compile(source_or_path: str) -> "CompiledProgram":
+    """Compile DSL text (or a path to a ``.sp`` file) once; the result
+    is cached per source (``.sp`` cache entries key on the file's
+    mtime, so on-disk edits recompile)."""
+    s = str(source_or_path)
+    stamp = None
+    if s.endswith(".sp"):
+        p = pathlib.Path(s)
+        if p.exists():
+            stamp = p.stat().st_mtime_ns
+    with _COMPILE_LOCK:
+        return _compile_once(s, stamp)
+
+
+def _no_failover(failover) -> None:
+    if failover is not None:
+        raise NotImplementedError(
+            "backend failover waits for a later slice (ROADMAP Queue 1 "
+            "item 11)")
 
 
 def bind_graph(csr: CSR, backend: str = "cuda",
@@ -58,10 +121,7 @@ def bind_graph(csr: CSR, backend: str = "cuda",
     """An algorithm-agnostic session: a device-resident graph handle for
     hand-staged ``repro_torch.algos`` code, on ``device`` (default: the
     card; the CSR is copied there if it lives elsewhere)."""
-    if failover is not None:
-        raise NotImplementedError(
-            "backend failover waits for a later slice (ROADMAP Queue 1 "
-            "item 11)")
+    _no_failover(failover)
     engine = make_engine(backend, device=device, **backend_opts)
     return GraphSession(engine, csr, capacity, backend_name=backend,
                         admission=admission, max_batch=max_batch,
@@ -78,6 +138,26 @@ def _auto_capacity(stream: Optional[UpdateStream] = None,
     if batch is not None:
         return max(_DEFAULT_CAPACITY, 8 * batch.size)
     return _DEFAULT_CAPACITY
+
+
+def _tree_spec(tree):
+    """Per-leaf ``[shape, numpy dtype name]`` mirror of a nested-dict
+    tensor tree — JSON-able, enough to rebuild an example tree for
+    ``ckpt.restore``; the names are numpy's, so ``repro`` reads them."""
+    if isinstance(tree, dict):
+        return {k: _tree_spec(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        np_dtype = torch.empty(0, dtype=tree.dtype).numpy().dtype
+        return [list(tree.shape), str(np_dtype)]
+    arr = np.asarray(tree)
+    return [list(arr.shape), str(arr.dtype)]
+
+
+def _example_from_spec(spec):
+    if isinstance(spec, dict):
+        return {k: _example_from_spec(v) for k, v in spec.items()}
+    shape, dtype = spec
+    return np.zeros(tuple(shape), np.dtype(dtype))
 
 
 class PropertyView(Mapping):
@@ -107,6 +187,28 @@ class PropertyView(Mapping):
     def __repr__(self):
         return (f"PropertyView({sorted(self._arrays)}, "
                 f"n={self._n}, device-resident)")
+
+
+class SessionResult:
+    """What ``Session.run`` returns: device-resident props and the DSL
+    return value.  ``to_host()`` is the explicit sync point."""
+
+    def __init__(self, session: "GraphSession", props: PropertyView,
+                 value: Any = None):
+        self.session = session
+        self.props = props
+        self.value = value
+
+    @property
+    def graph(self):
+        return self.session.handle
+
+    def to_host(self) -> Dict[str, np.ndarray]:
+        return self.props.to_host()
+
+    def __repr__(self):
+        return (f"SessionResult(props={sorted(self.props)}, "
+                f"value={self.value!r})")
 
 
 class GraphSession:
@@ -264,6 +366,18 @@ class GraphSession:
             self._health.record_error(exc)
             raise
 
+    # -- divergence watchdog -------------------------------------------------
+    def _watch(self, arrays: Dict[str, Any], where: str) -> None:
+        if self._guard.policy != "off":
+            _watchdog.check(arrays.items(), where=where,
+                            health=self._health)
+
+    def check_divergence(self) -> None:
+        """On-demand NaN/Inf probe over the resident property tensors;
+        raises :class:`DivergenceError` naming the poisoned ones."""
+        _watchdog.check(self._props.items(), where="check_divergence",
+                        health=self._health)
+
     # -- structural updates --------------------------------------------------
     def apply(self, batch: UpdateBatch) -> "GraphSession":
         """Apply one ΔG batch structurally (deletes then adds) after
@@ -361,6 +475,7 @@ class GraphSession:
             self._cursor += nb
         if isinstance(carry, dict):
             self._props = dict(carry)
+            self._watch(carry, where="run_stream")
         return carry
 
     def _apply_step(self, batch: UpdateBatch, step_fn: Callable, carry):
@@ -424,3 +539,430 @@ class GraphSession:
 
     def to_host(self):
         return self.props.to_host()
+
+    # -- durability (DESIGN.md §5) -------------------------------------------
+    def state_tree(self):
+        """Everything a durable restore needs, as one ``(nested-dict
+        tensor tree, JSON-able meta)`` pair: the packed graph handle,
+        the resident property tensors and the stream cursor."""
+        self._ensure_prepared()
+        handle_tree, handle_meta = self._engine.pack_state(self._handle)
+        tree = {"handle": handle_tree, "props": dict(self._props)}
+        meta = {"version": 1, "kind": "graph",
+                "backend": self._engine.name,
+                "n": self._engine.n_real, "n_pad": self._engine.n_pad,
+                "handle": handle_meta, "cursor": self._cursor}
+        return tree, meta
+
+    def save(self, ckpt_dir, step: Optional[int] = None, keep: int = 3):
+        """Durably checkpoint the session (atomic-rename commit protocol,
+        see ``repro_torch.ckpt.checkpoint``).  ``step`` defaults to the
+        stream cursor; returns the committed step directory."""
+        tree, meta = self.state_tree()
+        meta["tree_spec"] = _tree_spec(tree)
+        step = self._cursor if step is None else int(step)
+        return ckpt.save(ckpt_dir, step, tree, extra=meta, keep=keep)
+
+    @staticmethod
+    def restore(ckpt_dir, backend: Optional[str] = None,
+                step: Optional[int] = None, **backend_opts):
+        """Rebuild a session from ``save()`` output — see
+        :func:`restore_session`."""
+        return restore_session(ckpt_dir, backend=backend, step=step,
+                               **backend_opts)
+
+
+class Session(GraphSession):
+    """A CompiledProgram bound to one backend and one graph.
+
+    Two modes per DSL function:
+
+    * **one-shot** — ``run("DynSSSP", updateBatch=stream, ...)`` executes
+      the whole function (prologue, Batch loop over the given stream,
+      epilogue) against the resident handle; bit-identical to the
+      deprecated ``Program.run``, with no re-prepare and no host readback.
+    * **armed** — omit the ``updates<g>`` argument and ``run`` executes
+      only the prologue (e.g. the static algorithm), leaving the Batch
+      loop armed: each ``apply(batch)`` then executes one loop body
+      against the live state, and ``run_stream(stream, batch_size)``
+      folds a whole stream through it.  N applies are bit-identical to
+      one one-shot run over the same N batches.
+    """
+
+    def __init__(self, compiled: "CompiledProgram", engine: Engine,
+                 csr: CSR, capacity: Union[str, int] = "auto", **runtime_kw):
+        super().__init__(engine, csr, capacity, **runtime_kw)
+        self.compiled = compiled
+        self._armed: Optional[ArmedRun] = None
+        # the staged executable per function: repeat calls and armed
+        # applies skip host-side AST pattern interpretation
+        self._staged_funcs: Dict[str, Any] = {}
+
+    # -- DSL execution -------------------------------------------------------
+    def _staged(self, func: str):
+        st = self._staged_funcs.get(func)
+        if st is None:
+            st = self._staged_funcs[func] = \
+                self.compiled.program.stage(func, self._engine)
+        return st
+
+    def _batch_size_hint(self, staged, args) -> Optional[int]:
+        """The batch size a one-shot run will use, when the caller's
+        args name it (Batch statements read a scalar param such as
+        ``batchSize``); None when it cannot be told host-side (admission
+        then admits the one-shot path unchecked)."""
+        sizes = set()
+        for name in staged._armable:
+            v = args.get(name) if isinstance(name, str) else name
+            if isinstance(v, bool):
+                continue
+            if isinstance(v, (int, np.integer)):
+                sizes.add(int(v))
+        return sizes.pop() if len(sizes) == 1 else None
+
+    def _arm(self, func: str, args) -> None:
+        armed = self._staged(func).begin(self._handle, args)
+        self._armed = armed
+        self._handle = armed.gbox.value
+        self._props = armed.device_props()
+
+    def run(self, func: str, **args) -> SessionResult:
+        """Execute DSL function ``func`` against the resident graph.
+
+        Scalars and the update stream are passed by parameter name, as
+        keyword arguments.  If the function takes an ``updates<g>``
+        parameter and it is omitted (or None), the session arms the
+        Batch loop instead of running it (see class docstring)."""
+        program = self.compiled.program
+        fnode = program.ast.func(func)   # raises early on unknown names
+        upd_params = [p.name for p in fnode.params
+                      if p.type.name == "updates"]
+        streams = [args[p] for p in upd_params
+                   if args.get(p) is not None]
+        staged = self._staged(func)
+        self._ensure_prepared(stream=streams[0] if streams else None)
+
+        if upd_params and not streams:
+            self._guarded(lambda: self._arm(func, args))
+            return SessionResult(self, self.props, value=None)
+
+        if streams and self._guard.policy != "off":
+            res = self._run_oneshot_guarded(func, staged, args, upd_params)
+            if res is not None:
+                return res
+
+        out = {}
+
+        def op():
+            st = self._staged(func)
+            base = self._handle
+
+            def attempt():
+                g, props, ret = st.call(base, args)
+                self._handle = g
+                out["props"], out["ret"] = props, ret
+
+            def regrow():
+                # adds were dropped: grow the pool and replay the whole
+                # run from the pre-run graph
+                nonlocal base
+                base = self._engine.grow(base)
+
+            def rollback():
+                self._handle = base
+
+            self._retry_on_overflow(attempt, regrow, rollback=rollback)
+
+        self._guarded(op)
+        # disarm only now: a run that raised (bad args, lowering error)
+        # leaves a previously armed loop intact
+        self._armed = None
+        self._props = out["props"]
+        self._watch(self._props, where=f"run({func})")
+        return SessionResult(self, self.props, value=out["ret"])
+
+    def _run_oneshot_guarded(self, func: str, staged, args,
+                             upd_params) -> Optional[SessionResult]:
+        """Admission for one-shot runs: inspect the stream host-side
+        before execution.  A clean stream returns None and the caller
+        takes the one-shot path.  With poison batches, ``reject`` raises;
+        clamp/quarantine arm the Batch loop and feed guarded per-batch
+        applies (bit-identical to one-shot over the same batches)."""
+        if len(upd_params) != 1:
+            return None
+        pname = upd_params[0]
+        stream = args[pname]
+        bs = self._batch_size_hint(staged, args)
+        if bs is None or not isinstance(stream, UpdateStream):
+            return None
+        poison = self._guard.inspect_stream(stream, bs, self._n_vertices())
+        if not poison:
+            self._health.admitted += stream.num_batches(bs)
+            return None
+        arm_args = {k: v for k, v in args.items() if k != pname}
+        self._guarded(lambda: self._arm(func, arm_args))
+        self._armed_stream_loop(stream, bs)
+        value = self._armed.value()
+        self._armed = None
+        self._watch(self._props, where=f"run({func})")
+        return SessionResult(self, self.props, value=value)
+
+    @property
+    def armed(self) -> bool:
+        return self._armed is not None
+
+    def call(self, fn: Callable, *args, **kwargs):
+        out = super().call(fn, *args, **kwargs)
+        # a hand-staged driver that advanced the handle would leave an
+        # armed frame's graph box stale: it supersedes the armed loop
+        self._armed = None
+        return out
+
+    @property
+    def value(self):
+        """The DSL return value as of the current state (armed sessions
+        evaluate the post-Batch epilogue without disturbing state)."""
+        if self._armed is not None:
+            return self._armed.value()
+        raise CodegenError("no armed function; use the SessionResult "
+                           "returned by run()")
+
+    # -- incremental updates -------------------------------------------------
+    def apply(self, batch: UpdateBatch) -> "Session":
+        """Feed one ΔG batch to the armed Batch loop (a structural update
+        when nothing is armed).  On diff-pool overflow the state rolls
+        back, the pool grows, and the batch replays."""
+        if self._armed is None:
+            super().apply(batch)
+            return self
+        if self._armed.returned:
+            return self    # a batch body returned: the Batch loop is
+                           # over, exactly as in a one-shot run
+        admitted = self._guard.admit(batch, self._n_vertices(),
+                                     cursor=self._cursor)
+        if admitted is None:          # quarantined: batch consumed
+            self._cursor += 1
+            return self
+        self._apply_armed(admitted)
+        return self
+
+    def _apply_armed(self, batch: UpdateBatch) -> None:
+        """One admitted batch through the armed loop body, with snapshot
+        rollback for the overflow regrow-and-replay."""
+
+        def op():
+            armed = self._armed
+            snap = [armed.snapshot()]
+
+            def attempt():
+                armed.apply(batch)
+                self._handle = armed.gbox.value
+
+            def regrow():
+                armed.restore(snap[0])
+                armed.gbox.value = self._engine.grow(armed.gbox.value)
+                self._handle = armed.gbox.value
+                snap[0] = armed.snapshot()
+
+            def rollback():
+                armed.restore(snap[0])
+                self._handle = armed.gbox.value
+
+            self._retry_on_overflow(attempt, regrow, batch=batch,
+                                    rollback=rollback)
+
+        self._guarded(op)
+        self._props = self._armed.device_props()
+        self._cursor += 1
+
+    def _armed_stream_loop(self, stream: UpdateStream, bs: int) -> None:
+        """Fold a stream through the armed loop with stream-level
+        admission: poison batches are located on the raw host rows first
+        (``UpdateStream.batch`` int-casts what it pads) and resolved per
+        policy as the loop reaches them."""
+        n = self._n_vertices()
+        poison = self._guard.inspect_stream(stream, bs, n)
+        if poison and self._guard.policy == "reject":
+            first = min(poison)
+            self._guard.resolve(stream.batch(first, bs, self.device),
+                                poison[first], self._cursor, first, n)
+        for i in range(stream.num_batches(bs)):
+            if self._armed.returned:
+                break            # a batch body returned: stop, like the
+            batch = stream.batch(i, bs, self.device)   # one-shot loop
+            if i in poison:
+                batch = self._guard.resolve(batch, poison[i],
+                                            self._cursor, i, n)
+                if batch is None:         # quarantined: batch consumed
+                    self._cursor += 1
+                    continue
+            elif self._guard.policy != "off":
+                self._health.admitted += 1
+            self._apply_armed(batch)
+
+    def _rearm(self, armed_meta: dict, arrays: dict) -> None:
+        """Re-stage an armed Batch loop on the current engine and rebuild
+        its paused frame from serialized arrays (``restore_session``)."""
+        staged = self._staged(armed_meta["func"])
+        self._armed = ArmedRun.deserialize(staged, self._handle, arrays,
+                                           armed_meta)
+        self._handle = self._armed.gbox.value
+        self._props = self._armed.device_props()
+
+    # -- durability ----------------------------------------------------------
+    def state_tree(self):
+        """Adds the program source and (when armed) the serialized
+        Batch-loop position to the GraphSession snapshot."""
+        tree, meta = super().state_tree()
+        meta["kind"] = "session"
+        meta["source"] = self.compiled.program.source
+        if self._armed is not None:
+            arrays, armed_meta = self._armed.serialize()
+            tree["armed"] = arrays
+            meta["armed"] = armed_meta
+        return tree, meta
+
+    def run_stream(self, stream: UpdateStream, batch_size: Optional[int] =
+                   None, step_fn: Optional[Callable] = None, carry=None,
+                   **kw):
+        """Armed sessions: fold a whole update stream through the armed
+        Batch loop, one ``apply`` per batch; returns a
+        :class:`SessionResult`.  With an explicit ``step_fn`` this is the
+        GraphSession (hand-staged) path and returns the final carry."""
+        if step_fn is not None:
+            out = super().run_stream(stream, batch_size, step_fn, carry,
+                                     **kw)
+            # hand-staged streaming supersedes any armed DSL loop
+            self._armed = None
+            return out
+        if self._armed is None:
+            raise CodegenError("run_stream without step_fn needs an armed "
+                               "function; call run(func, ...) without its "
+                               "updates argument first")
+        if carry is not None or kw:
+            raise TypeError(
+                f"run_stream on an armed session takes only (stream, "
+                f"batch_size); carry/{sorted(kw)} belong to the step_fn "
+                f"(hand-staged) path")
+        bs = batch_size
+        if bs is None:
+            # the batchSize the function was armed with, if any
+            try:
+                bs = self._armed.frame.lookup(
+                    self._armed.batch_stmt.batch_size)
+            except CodegenError:
+                bs = None
+        if bs is None:
+            raise CodegenError("no batch size: pass run_stream(..., "
+                               "batch_size=N) or batchSize= at arm time")
+        self._ensure_prepared(stream=stream)
+        self._armed_stream_loop(stream, int(bs))
+        self._watch(self._props, where="run_stream(armed)")
+        return SessionResult(self, self.props, value=self._armed.value())
+
+
+class CompiledProgram:
+    """A compiled DSL program, backend-agnostic; ``bind`` picks the
+    backend by registry name and yields a :class:`Session`."""
+
+    def __init__(self, program: Program):
+        self.program = program
+
+    @property
+    def functions(self):
+        """Names of the functions this program defines."""
+        return [f.name for f in self.program.ast.funcs]
+
+    def bind(self, csr: CSR, backend: str = "cuda",
+             capacity: Union[str, int] = "auto",
+             admission: str = "clamp",
+             max_batch: int = DEFAULT_MAX_BATCH,
+             dead_letter: int = 64,
+             failover=None,
+             device=None,
+             **backend_opts) -> Session:
+        """Bind to a graph on a named backend, on ``device`` (default:
+        the card).  ``capacity`` sizes the diff-CSR pool: an int is
+        explicit; ``"auto"`` derives it from the stream of the first
+        one-shot run (armed sessions start at the default size), with
+        grow-on-overflow as the backstop either way.  ``admission`` is
+        the ΔG validation policy (``reject | clamp | quarantine |
+        off``), as for :func:`bind_graph`."""
+        _no_failover(failover)
+        engine = make_engine(backend, device=device, **backend_opts)
+        return Session(self, engine, csr, capacity, backend_name=backend,
+                       admission=admission, max_batch=max_batch,
+                       dead_letter=dead_letter)
+
+    def __repr__(self):
+        return f"CompiledProgram(functions={self.functions})"
+
+
+def restore_session(ckpt_dir, backend: Optional[str] = None,
+                    step: Optional[int] = None,
+                    engine: Optional[Engine] = None,
+                    **backend_opts) -> GraphSession:
+    """Reconstruct a session from a checkpoint directory written by
+    ``Session.save`` / ``GraphSession.save`` (of this package or of
+    ``repro``).
+
+    ``step=None`` picks the latest committed step.  ``backend=None``
+    restores onto the backend that saved (a ``repro`` checkpoint names
+    ``jnp`` or ``pallas``, which this package does not have: pass
+    ``torch`` or ``cuda``).  Same state kind (``torch`` ↔ ``dyn``,
+    ``cuda`` ↔ ``pallas``): **bit-exact**, the raw handle leaves (diff
+    pool, tombstones, ELL pack) are restored.  Another kind converts
+    through the alive-edge list and re-``prepare``s (value-preserving,
+    pool layout reset).  An armed Batch loop resumes where it paused;
+    the prologue is not re-run.  ``backend_opts`` (``device=`` among
+    them) go to the engine; ``engine=`` restores onto an engine already
+    built instead."""
+    if step is None:
+        step = ckpt.latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(
+                f"no committed checkpoint under {ckpt_dir}")
+    meta = ckpt.read_manifest(ckpt_dir, step)["extra"]
+    if engine is not None:
+        if backend is not None or backend_opts:
+            raise ValueError("restore_session: pass either engine= or "
+                             "backend=/**backend_opts, not both")
+    else:
+        engine = make_engine(backend or meta["backend"], **backend_opts)
+    tree, _ = ckpt.restore(ckpt_dir, step,
+                           _example_from_spec(meta["tree_spec"]))
+
+    hmeta = meta["handle"]
+    exact = engine.state_kind == hmeta["kind"]
+    if exact:
+        handle = engine.unpack_state(tree["handle"], hmeta)
+    else:
+        csr, cap = state_to_csr(tree["handle"], hmeta, device=engine.device)
+        handle = engine.prepare(csr, diff_capacity=cap)
+
+    if meta["kind"] == "session":
+        sess: GraphSession = Session(compile(meta["source"]), engine,
+                                     csr=None)
+    else:
+        sess = GraphSession(engine, csr=None)
+    sess._handle = handle
+    sess._props = {k: to_device(v, engine.device)
+                   for k, v in tree.get("props", {}).items()}
+    sess._cursor = int(meta["cursor"])
+
+    armed_meta = meta.get("armed")
+    if armed_meta is not None:
+        arrays = dict(tree.get("armed") or {})
+        for name, m in armed_meta["env"].items():
+            # edge-lane state survives only where the pool layout does
+            if m["kind"] == "prop" and m.get("bound") and m["is_edge"] \
+                    and not exact:
+                raise ValueError(
+                    f"armed edge property {name!r} is bound to the "
+                    f"saved pool layout; it cannot survive a "
+                    f"cross-backend restore — restore onto the saving "
+                    f"backend's state kind, or disarm before saving")
+        sess._rearm(armed_meta, arrays)
+    # one triple read pins the overflow base for the restored pool
+    sess._of_base = sess._sync_counters()[0]
+    return sess

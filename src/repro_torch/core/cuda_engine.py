@@ -13,8 +13,12 @@
   TorchEngine's scatter path for ``update_add``.
 
 Every other sweep takes the TorchEngine's segment reductions, as in the
-reference.  The ELL pack stays resident across batches: deletions and
-revivals patch their slots, only appends to the diff pool rebuild it.
+reference: the DSL's sweeps declare no ``gather_form``
+(``core/dsl/lowering.py: build_edge_sweep``), so they all go there.
+Wedge enumeration (triangle counting) runs the TorchEngine's on the
+handle's graph; it launches no kernel.  The ELL pack stays resident
+across batches: deletions and revivals patch their slots, only appends
+to the diff pool rebuild it.
 
 On CPU tensors the kernel wrappers run their plain versions, which is
 how the tests hold this engine against the reference without a card.
@@ -114,6 +118,12 @@ class CudaEngine(TorchEngine):
 
     def batch_edge_flags(self, h: CudaHandle, qs, qd, mask):
         return super().batch_edge_flags(h.g, qs, qd, mask)
+
+    def count_wedges(self, h: CudaHandle, pair_fn, lane_flags, out_example):
+        return super().count_wedges(h.g, pair_fn, lane_flags, out_example)
+
+    def sweep(self, h: CudaHandle, sw: EdgeSweep, props: Props) -> Props:
+        return self._run_sweep(h, sw, props)
 
     # -- stream executor hooks ---------------------------------------------
     def handle_graph(self, h: CudaHandle) -> DynGraph:

@@ -9,7 +9,10 @@ of ``repro.core.engine``).
 Control flow runs on the host: a fixed point checks its condition with
 one host sync per sweep, and ``run_stream`` reads the pool counters once
 per segment of batches, as the reference's stream executor does (its
-``lax.scan`` over a segment waits for CUDA graphs).
+``lax.scan`` over a segment waits for CUDA graphs).  Wedge enumeration
+(``count_wedges``, triangle counting) loops over a region's max degree;
+that bound is read from the card once per offsets tensor and cached on
+the tensor's identity, so a call costs no sync unless the pool changed.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ from repro_torch.graph.csr import CSR, INT, build_csr
 from repro_torch.graph.diffcsr import BOOL, DynGraph
 from repro_torch.graph.updates import UpdateBatch
 from repro_torch.tensors import (clamp_index, in_range, resolve_device,
-                                 segment_max, segment_min, set_drop,
+                                 segment_max, segment_min, set_drop, take,
                                  to_device)
 
 Props = Dict[str, torch.Tensor]
@@ -57,6 +60,25 @@ def edge_lane_flags(g: DynGraph, qs, qd, mask=None) -> torch.Tensor:
     return set_drop(flags, torch.where(f2 & mask & ~f1, E + p2, E + D), True)
 
 
+class WedgeCtx:
+    """Per-iteration context handed to wedge pair functions (TC)."""
+
+    def __init__(self, g: DynGraph, lane_flags: Dict[str, torch.Tensor],
+                 nbr_lane: torch.Tensor, is_edge_fn, edge_flag_fn):
+        self.g = g
+        self._lane_flags = lane_flags
+        self._nbr_lane = nbr_lane
+        self.is_edge = is_edge_fn          # (qs, qd) -> bool lanes
+        self.edge_flag = edge_flag_fn      # (name, qs, qd) -> bool lanes
+
+    def nbr_flag(self, name: str) -> torch.Tensor:
+        fl = self._lane_flags[name]
+        return fl[self._nbr_lane.clamp(0, fl.shape[0] - 1)]
+
+    def lane_flag(self, name: str) -> torch.Tensor:
+        return self._lane_flags[name]
+
+
 class Engine:
     """Backend-neutral interface (the 'generated program' surface)."""
 
@@ -69,6 +91,13 @@ class Engine:
     def __init__(self, device=None):
         self.device = resolve_device(device)
         self._n = None
+        # max-degree bounds of count_wedges, keyed by region: (offsets
+        # tensor, value); an update that rebuilds an offsets tensor
+        # invalidates its entry by identity
+        self._deg_cache: Dict[str, tuple] = {}
+        # host reads of a max degree (one sync each), for the tests and
+        # the smoke's sync counts
+        self.deg_syncs = 0
 
     # -- construction ------------------------------------------------------
     def prepare(self, csr: CSR, diff_capacity: int) -> Any:
@@ -94,6 +123,9 @@ class Engine:
         return {k: v.cpu().numpy()[: self._n] for k, v in props.items()}
 
     # -- aggregate ops -----------------------------------------------------
+    def sweep(self, handle, sw: EdgeSweep, props: Props) -> Props:
+        raise NotImplementedError
+
     def fixed_point(self, handle, sw: EdgeSweep, props: Props,
                     cond_fn: Callable, max_iter: int) -> Props:
         raise NotImplementedError
@@ -101,11 +133,20 @@ class Engine:
     def vertex_map(self, handle, fn: Callable, props: Props) -> Props:
         raise NotImplementedError
 
-    def count_wedges(self, handle, pair_fn, lane_flags, out_example,
-                     bounds=None):
-        raise NotImplementedError(
-            "wedge enumeration comes with triangle counting "
-            "(ROADMAP Queue 1 item 7)")
+    def count_wedges(self, handle, pair_fn, lane_flags, out_example):
+        raise NotImplementedError
+
+    def _max_deg(self, region: str, offsets: torch.Tensor) -> int:
+        """A region's max row length: one host read per offsets tensor,
+        cached on the tensor's identity (updates keep ``offsets`` and
+        rebuild ``d_offsets`` only when they append to the pool)."""
+        cached = self._deg_cache.get(region)
+        if cached is None or cached[0] is not offsets:
+            deg = offsets[1:] - offsets[:-1]
+            self.deg_syncs += 1
+            cached = (offsets, int(deg.max()) if deg.numel() else 0)
+            self._deg_cache[region] = cached
+        return cached[1]
 
     def propagate_flags(self, handle, props: Props, flag: str,
                         max_iter: int = 1_000_000) -> Props:
@@ -325,6 +366,9 @@ class TorchEngine(Engine):
             hit[target] = hit[red.of]
         return sw.post_fn(props, reduced, hit)
 
+    def sweep(self, g: DynGraph, sw: EdgeSweep, props: Props) -> Props:
+        return self._run_sweep(g, sw, props)
+
     def fixed_point(self, g, sw: EdgeSweep, props: Props,
                     cond_fn: Callable, max_iter: int) -> Props:
         """The reference's ``lax.while_loop``: one host sync per sweep to
@@ -338,6 +382,64 @@ class TorchEngine(Engine):
 
     def vertex_map(self, g, fn: Callable, props: Props) -> Props:
         return fn(props)
+
+    # -- wedges (triangle counting) ----------------------------------------
+    def count_wedges(self, g: DynGraph, pair_fn: Callable,
+                     lane_flags: Dict[str, torch.Tensor], out_example):
+        """Sum ``pair_fn(x, y, z, z_ok, ctx)`` over every wedge x→y, x→z:
+        each edge lane (x, y) walks x's row j = 0, 1, ... in the main
+        region, then in the diff pool, up to the region's max degree (read
+        from the cache, so a host loop runs no empty iterations; the
+        reference bounds the pool by its capacity inside ``lax.scan``,
+        and the extra iterations there add zeros).
+        ``out_example`` is a 0-d tensor or a tuple of them, and each sum
+        keeps its dtype: partial sums stay int32 where the reference's
+        do (``torch.sum`` of int32 would give int64)."""
+        esrc, edst, ew, ealive = g.edge_arrays()
+        E, D = g.main_capacity, g.diff_capacity
+        max_main = self._max_deg("main", g.offsets)
+        max_diff = self._max_deg("diff", g.d_offsets)
+        # no row is longer than its region's max degree L, so a search in
+        # it settles after L.bit_length() rounds; the reference runs 32,
+        # and the rounds after a search settles change nothing
+        rounds = (max_main.bit_length(), max_diff.bit_length())
+
+        def is_edge_fn(qs, qd):
+            return diffcsr.is_edge(g, qs, qd, rounds)
+
+        def edge_flag_fn(name, qs, qd):
+            fl = lane_flags[name]
+            p1, f1 = diffcsr._locate_main(g, qs, qd, rounds[0])
+            p2, f2 = diffcsr._locate_diff(g, qs, qd, rounds[1])
+            r = torch.zeros(qs.shape, dtype=BOOL, device=qs.device)
+            r = torch.where(f1 & g.alive[p1], fl[p1.clamp(0, E + D - 1)], r)
+            return torch.where(f2 & g.d_alive[p2] & ~f1,
+                               fl[(E + p2).clamp(0, E + D - 1)], r)
+
+        single = not isinstance(out_example, tuple)
+        total = [torch.zeros((), dtype=x.dtype, device=self.device)
+                 for x in ((out_example,) if single else out_example)]
+        for region, count, offsets, dst, alive, cap, base in (
+                ("main", max_main, g.offsets, g.dst, g.alive, E, 0),
+                ("diff", max_diff if D else 0, g.d_offsets, g.d_dst,
+                 g.d_alive, D, E)):
+            if count == 0:
+                continue
+            # the row bounds of every lane's source, hoisted out of the loop
+            start = take(offsets, esrc)
+            end = take(offsets, esrc.to(torch.int64) + 1)
+            for j in range(count):
+                pos = start + j
+                ok = pos < end
+                safe = pos.clamp(0, max(cap - 1, 0))
+                z = dst[safe]
+                z_ok = ok & alive[safe]
+                ctx = WedgeCtx(g, lane_flags, base + safe, is_edge_fn,
+                               edge_flag_fn)
+                contrib = pair_fn(esrc, edst, z, z_ok & ealive, ctx)
+                total = [t + c.sum(dtype=t.dtype) for t, c in
+                         zip(total, (contrib,) if single else contrib)]
+        return total[0] if single else tuple(total)
 
     # -- updates -----------------------------------------------------------
     def update_del(self, g: DynGraph, batch: UpdateBatch) -> DynGraph:

@@ -82,16 +82,19 @@ def build_csr(n: int, edges, weights=None, dedupe: bool = True,
 # ---------------------------------------------------------------------------
 
 def row_searchsorted(sorted_vals: torch.Tensor, lo: torch.Tensor,
-                     hi: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
+                     hi: torch.Tensor, queries: torch.Tensor,
+                     rounds: int = 32) -> torch.Tensor:
     """For each query q_i, first index in sorted_vals[lo_i:hi_i] >= q_i.
 
     The reference's ``lax.fori_loop`` of 32 gather rounds becomes a Python
     loop of the same fixed count: no host sync, enough for any row
-    length up to 2^31."""
+    length up to 2^31.  A caller that knows every row is at most L long
+    passes ``rounds=L.bit_length()``, after which the loop changes
+    nothing."""
     lo = lo.to(INT)
     hi = hi.to(INT)
     cap = max(int(sorted_vals.shape[0]) - 1, 0)
-    for _ in range(32):
+    for _ in range(rounds):
         active = lo < hi
         mid = (lo + hi) // 2
         v = (sorted_vals[mid.clamp(0, cap)] if sorted_vals.shape[0]

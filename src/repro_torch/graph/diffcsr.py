@@ -99,10 +99,10 @@ def from_csr(csr: CSR, diff_capacity: int) -> DynGraph:
 # Lookup helpers
 # ---------------------------------------------------------------------------
 
-def _locate(offsets, dst, qs, qd):
+def _locate(offsets, dst, qs, qd, rounds: int = 32):
     lo = take(offsets, qs)
     hi = take(offsets, qs.to(torch.int64) + 1)
-    pos = row_searchsorted(dst, lo, hi, qd)
+    pos = row_searchsorted(dst, lo, hi, qd, rounds)
     cap = dst.shape[0]
     if not cap:
         return pos, torch.zeros(qs.shape, dtype=BOOL, device=qs.device)
@@ -110,13 +110,14 @@ def _locate(offsets, dst, qs, qd):
     return safe, (pos < hi) & (dst[safe] == qd)
 
 
-def _locate_main(g: DynGraph, qs, qd):
-    """(pos, found) of (qs->qd) in the main region, ignoring alive bit."""
-    return _locate(g.offsets, g.dst, qs, qd)
+def _locate_main(g: DynGraph, qs, qd, rounds: int = 32):
+    """(pos, found) of (qs->qd) in the main region, ignoring alive bit;
+    ``rounds`` as for ``row_searchsorted``."""
+    return _locate(g.offsets, g.dst, qs, qd, rounds)
 
 
-def _locate_diff(g: DynGraph, qs, qd):
-    return _locate(g.d_offsets, g.d_dst, qs, qd)
+def _locate_diff(g: DynGraph, qs, qd, rounds: int = 32):
+    return _locate(g.d_offsets, g.d_dst, qs, qd, rounds)
 
 
 def update_lanes(g: DynGraph, qs, qd, mask):
@@ -157,10 +158,11 @@ def _log2_iters(length: int) -> int:
     return it + 1
 
 
-def is_edge(g: DynGraph, qs, qd) -> torch.Tensor:
-    """Vectorized alive-edge membership (u->v)."""
-    p1, f1 = _locate_main(g, qs, qd)
-    p2, f2 = _locate_diff(g, qs, qd)
+def is_edge(g: DynGraph, qs, qd, rounds=(32, 32)) -> torch.Tensor:
+    """Vectorized alive-edge membership (u->v); ``rounds`` of the main
+    and the diff region's searches as for ``row_searchsorted``."""
+    p1, f1 = _locate_main(g, qs, qd, rounds[0])
+    p2, f2 = _locate_diff(g, qs, qd, rounds[1])
     return (f1 & g.alive[p1]) | (f2 & g.d_alive[p2])
 
 

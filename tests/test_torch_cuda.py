@@ -652,3 +652,130 @@ def test_lm_prefill_launches_flash_once_per_layer(dev):
     ref, _ = model.prefill_step(prompts)
     assert TF.LAUNCHES["flash_attention"] == 2
     assert float((logits - ref).abs().max()) <= 0.25 * float(ref.std())
+
+
+# ---------------------------------------------------------------------------
+# Triangle counting and the DSL sessions on the card
+# ---------------------------------------------------------------------------
+
+def sym_graph_and_stream(where, seed=0, n=300, m=1500, percent=10):
+    """A symmetrized random graph and an update stream whose two
+    directions of an edge sit side by side (so a batch of even size
+    never splits them), as benchmarks/dynamic_vs_static.py makes them."""
+    from repro_torch.algos.oracles import symmetrize
+    n, edges, w = random_graph(seed, n, m)
+    e, w2 = symmetrize(edges, w)
+    csr = repro_torch.build_csr(n, e, w2, device=where)
+    ups = repro_torch.random_updates(csr, percent=percent, seed=seed + 1)
+    adds = np.stack([ups.adds, ups.adds[:, [1, 0, 2]]], 1).reshape(-1, 3)
+    dels = np.stack([ups.dels, ups.dels[:, [1, 0]]], 1).reshape(-1, 2)
+    return csr, repro_torch.UpdateStream(adds=adds, dels=dels)
+
+
+ROW_KERNELS = ("fused_relax_rows", "fused_spmv_rows")
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda_chained", "torch"])
+def test_tc_on_card_matches_cpu_run_and_oracle(dev, backend):
+    """static_tc, dyn_tc and the stream executor on the card give the CPU
+    run's int32 counts and the oracle's; cuda merges each add batch with
+    merge_pool_sorted and no row kernel runs."""
+    from repro_torch.algos import oracles, triangles
+    out = []
+    for where in ("cpu", dev):
+        csr, stream = sym_graph_and_stream(where)
+        for mod in (TK, TC):
+            mod.reset_launches()
+        sess = repro_torch.bind_graph(csr, backend=backend, device=where,
+                                      capacity=2 * stream.num_adds)
+        c0 = sess.call(triangles.static_tc)
+        c1 = sess.call(triangles.dyn_tc, stream, 32)
+        sess = repro_torch.bind_graph(csr, backend=backend, device=where,
+                                      capacity=2 * stream.num_adds)
+        c2 = sess.run_stream(stream, 32, triangles.stream_step,
+                             sess.call(triangles.static_tc))
+        out.append(([c0, c1, c2], {**TK.LAUNCHES, **TC.LAUNCHES}))
+    (cpu, _), (gpu, launches) = out
+    for a, b in zip(cpu, gpu):
+        assert b.dtype == torch.int32 and b.device.type == dev.type
+        assert int(a) == int(b)
+    csr, stream = sym_graph_and_stream("cpu")
+    e = np.stack([csr.src.numpy(), csr.dst.numpy()], 1)
+    post, _ = oracles.edges_after_updates(csr.n, e, csr.w.numpy(),
+                                          stream.adds, stream.dels)
+    assert int(cpu[0]) == oracles.tc_oracle(csr.n, e)
+    assert int(cpu[1]) == int(cpu[2]) == oracles.tc_oracle(csr.n, post)
+    nb = stream.num_batches(32)
+    assert launches["merge_pool_sorted"] == (2 * nb if backend == "cuda"
+                                             else 0)
+    assert all(launches[k] == 0 for k in ROW_KERNELS + tuple(TC.LAUNCHES))
+
+
+def dsl_sssp(where, backend, stream=None, capacity=1024):
+    from repro_torch import dsl_programs
+    n, edges, w = random_graph(7, 300, 1500)
+    csr = repro_torch.build_csr(n, edges, w, device=where)
+    if stream is None:
+        stream = repro_torch.random_updates(csr, percent=20, seed=7)
+    sess = repro_torch.compile(dsl_programs.path("sssp")).bind(
+        csr, backend=backend, capacity=capacity, device=where)
+    return csr, stream, sess
+
+
+def test_dsl_sssp_session_on_card(dev):
+    """DynSSSP through compile → bind → run on cuda: the CPU session's
+    dist and parent, the hand-staged cuda run's dist; armed applies equal
+    the one-shot run; merge_pool_sorted launches once per add batch and
+    no row kernel runs (DSL sweeps take the segment path)."""
+    _, stream, cpu = dsl_sssp("cpu", "cuda")
+    want = cpu.run("DynSSSP", updateBatch=stream, batchSize=16, src=0)
+    for mod in (TK, TC):
+        mod.reset_launches()
+    csr, _, sess = dsl_sssp(dev, "cuda", stream)
+    got = sess.run("DynSSSP", updateBatch=stream, batchSize=16, src=0)
+    assert TK.LAUNCHES["merge_pool_sorted"] == stream.num_batches(16)
+    assert all(TK.LAUNCHES[k] == 0 for k in ROW_KERNELS)
+    assert set(TC.LAUNCHES.values()) == {0}
+    for k in ("dist", "parent"):
+        assert torch.equal(got.props[k].cpu(), want.props[k]), k
+    hand = repro_torch.bind_graph(csr, backend="cuda", capacity=1024,
+                                  device=dev)
+    props = hand.call(sssp.static_sssp, 0)
+    props = hand.run_stream(stream, 16, sssp.stream_step, props)
+    assert torch.equal(props["dist"], got.props["dist"])
+    _, _, armed = dsl_sssp(dev, "cuda", stream)
+    armed.run("DynSSSP", batchSize=16, src=0)
+    for b in stream.batches(16, device=dev):
+        armed.apply(b)
+    for k, v in got.props.items():
+        assert torch.equal(armed.props[k], v), k
+
+
+def test_dsl_save_restore_on_card(dev, tmp_path):
+    """An armed DynSSSP saved midway on the card and restored finishes
+    bit for bit as the uninterrupted run: dist, every DynGraph array and
+    the ELL pack."""
+    _, stream, full = dsl_sssp(dev, "cuda")
+    batches = list(stream.batches(16, device=dev))
+    assert len(batches) >= 2
+    full.run("DynSSSP", batchSize=16, src=0)
+    for b in batches:
+        full.apply(b)
+    _, _, part = dsl_sssp(dev, "cuda", stream)
+    part.run("DynSSSP", batchSize=16, src=0)
+    k = len(batches) // 2
+    for b in batches[:k]:
+        part.apply(b)
+    part.save(tmp_path)
+    del part
+    back = repro_torch.restore_session(tmp_path, device=dev)
+    assert back.armed and back.stream_cursor == k and back.device == dev
+    for b in batches[k:]:
+        back.apply(b)
+    for k_, v in full.props.items():
+        assert torch.equal(back.props[k_], v), k_
+    for part_ in ("g", "ell"):
+        a, b = getattr(full.handle, part_), getattr(back.handle, part_)
+        for f, x in vars(a).items():
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(x, getattr(b, f)), (part_, f)

@@ -249,8 +249,8 @@ def test_pack_and_patches_slot_exact(k):
 
 def test_port_imports_neither_jax_nor_repro():
     """Import every repro_torch module and chip_smoke.py in a fresh
-    interpreter; neither jax nor repro may load.  Also scan their import
-    statements."""
+    interpreter, and compile a DSL program there; neither jax nor repro
+    may load.  Also scan their import statements."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import repro_torch\n"
@@ -258,6 +258,10 @@ def test_port_imports_neither_jax_nor_repro():
         "'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "import repro_torch.core.dsl, repro_torch.dsl_programs\n"
+        "import repro_torch.ckpt.checkpoint, repro_torch.algos.triangles\n"
+        "prog = repro_torch.compile(repro_torch.dsl_programs.path('tc'))\n"
+        "assert prog.functions[-1] == 'DynTC', prog.functions\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
