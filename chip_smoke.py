@@ -50,8 +50,34 @@ Phases (any failure exits non-zero):
       ``DynSSSP`` at RMAT scale 16, in batches of 2,048, is saved midway
       into a temporary directory, restored and finished: ``dist`` and
       every DynGraph and ELL array equal the uninterrupted run's.
-   The ``torch`` backend's runs (step 4) launch no kernel but the float
-   segment sum.  Each window of 2d and 2e prints its wall time, launches
+   f. Failover and serving, after 2e.  SSSP on the graph and stream of
+      2a through ``bind_graph(failover=True)`` on ``cuda``, with a fault
+      planted at the ``kernel_launch`` seam of ``update_add`` from the
+      third batch on: the session must hop to ``cuda_chained`` (same
+      engine name, so it fails too) and then to ``torch`` (2 failovers)
+      and end with dist, parent and every DynGraph array equal to 2a's;
+      a fault that only the fused regime meets must stop it on
+      ``cuda_chained``, whose ``relax_rowmin`` and ``relax_rowargmin``
+      then launch; one more batch with the re-probe due must bring it
+      back to ``cuda`` (``fused_relax_rows`` launches again; dist and
+      parent equal the ``torch`` session's); without ``failover=`` the
+      fault must raise ``KernelFailure`` with every array as before the
+      batch.  Each migration's wall time is printed.  Then the serving
+      pool: ``SessionPool`` on ``cuda``, 32 tenants on ``rmat_graph(16,
+      8, seed=1)`` without self-loops, each with its own
+      ``random_updates(percent=30, seed=t)`` in batches of 2,048, 8
+      armed ``DynSSSP`` tenants and 24 structural ones, ``max_resident``
+      24, 8 ticks through ``apply_many``, in ``vmap``, ``scan`` and
+      ``off`` modes: every tenant's DynGraph, ELL and property arrays
+      equal across the modes and to solo sessions; in ``vmap``
+      ``merge_pool_sorted_batched`` launches once a tick (one group) and
+      ``merge_pool_sorted`` only for the armed tenants, in ``scan`` and
+      ``off`` ``merge_pool_sorted`` once a tenant a tick; a mega-call
+      makes at most 2 host syncs.  Tick p50/p99 and µs a session are
+      printed per mode.
+   The main paths (2a-2c, step 4) must end on their own backend with no
+   failover.  The ``torch`` backend's runs (step 4) launch no kernel but
+   the float segment sum.  Each window of 2d-2f prints its wall time, launches
    and peak memory; each kernel's JSON record lists its launches by
    window (``launches_by_path``; the LM prefill and decode are windows
    too).
@@ -68,7 +94,10 @@ Phases (any failure exits non-zero):
    ``MERGE_CASES`` (ties with rows that differ, D at and around its tile's
    edges, B above the tile and above D, an empty pool, a batch before or
    after the whole pool, negative source ids), bit for bit, before it is
-   timed.
+   timed.  ``merge_pool_sorted_batched`` (phase 2f) runs ``MERGE_CASES``
+   stacked 1, 3 and 32 sessions wide against its plain version and as
+   many solo launches, bit for bit, and is timed at the pool's shape
+   beside the solo launches and its bound.
 4. Correctness of the runs: SSSP ``dist``, ``parent`` and every DynGraph
    array equal the ``torch`` backend's, ``cuda_chained``'s dist and parent
    equal ``cuda``'s, and dist equals scipy's Dijkstra over the
@@ -131,6 +160,7 @@ TENSOR_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # tokens, 32 greedy tokens
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "starcoder2-7b", 4, 2048, 32
 L2_FLUSH_BYTES = 256 << 20
+HOST_LEAD_CYCLES = 500_000      # ~0.25 ms at the H100's 1.98 GHz
 DEV = "cuda"
 
 
@@ -163,11 +193,16 @@ class Timer:
 
 def median_ms(torch, fn, reps: int, flush) -> float:
     """Median of ``reps`` launches, each timed by CUDA events with a cold
-    L2 (the main path meets these inputs once per sweep or batch)."""
+    L2 (the main path meets these inputs once per sweep or batch).  The
+    card idles ``HOST_LEAD_CYCLES`` after the flush, so that a wrapper's
+    host work before its launch (tens of µs through ctypes and checks)
+    falls before the first event and a kernel of a few µs is timed
+    alone."""
     fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(HOST_LEAD_CYCLES)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -563,6 +598,10 @@ def drive(torch, repro_torch, counts, csr, stream, tag, backend, static,
     sess, props, times = run_path(repro_torch, csr, stream, backend, static,
                                   step, clock)
     launches = counts.read()
+    if sess.backend_name != backend or sess.health.failovers:
+        raise AssertionError(f"[{tag}] the session left {backend}: now on "
+                             f"{sess.backend_name}, "
+                             f"{sess.health.failovers} failovers")
     WINDOWS[tag], TIMES[tag] = launches, times
     ups = (stream.num_adds + stream.num_dels) / times[2]
     log(f"[{tag}] prepare {times[0]:.3f} s | static {times[1]:.3f} s | "
@@ -1363,6 +1402,455 @@ def dsl_phase(torch, np, repro_torch, counts, args, csr, stream, sssp_cuda,
     del back, full, small
     torch.cuda.empty_cache()
 
+# -- phase 2f: failover and the serving pool ---------------------------------
+DYN_FIELDS = ("offsets", "src", "dst", "w", "alive", "d_offsets", "d_src",
+              "d_dst", "d_w", "d_alive", "overflow")
+# the pool: the reference's serving family at a size the card holds
+# (benchmarks/serve.py: rmat degree 8, 30% updates a tenant; the mix of
+# examples/multi_tenant.py: 8 armed DynSSSP tenants of 32, 24 resident)
+POOL_SCALE, POOL_DEGREE, POOL_PERCENT = 16, 8, 30
+POOL_TENANTS, POOL_ARMED, POOL_RESIDENT = 32, 8, 24
+POOL_BATCH, POOL_TICKS = 2048, 8
+# every tenant's diff pool holds all its ticks' adds: no overflow replay
+POOL_CAPACITY = POOL_TICKS * POOL_BATCH
+MERGE_WIDTHS = (1, 3, 32)
+
+
+SYNC_SITES = {}
+
+
+def count_syncs(torch, fn):
+    """``fn()`` and the host syncs it made (torch's sync debug mode warns
+    at every synchronizing call); each sync's Python line is tallied in
+    ``SYNC_SITES``."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode(1)
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    for w in syncs:
+        site = f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}"
+        SYNC_SITES[site] = SYNC_SITES.get(site, 0) + 1
+    return out, len(syncs)
+
+
+def failover_phase(torch, repro_torch, counts, csr, stream, sssp_cuda,
+                   g_host) -> None:
+    """Phase 2f, failover: SSSP on the smoke's graph and stream through
+    ``bind_graph(failover=True)`` with a fault planted at the
+    ``kernel_launch`` seam of ``update_add`` once two batches are in."""
+    from repro_torch.algos import sssp
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.errors import KernelFailure
+    migrations = []
+
+    def bind(**kw):
+        sess = repro_torch.bind_graph(csr, backend="cuda",
+                                      capacity=2 * stream.num_adds,
+                                      device=DEV, **kw)
+        inner = sess._migrate
+
+        def timed(name):
+            frm = sess.backend_name
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inner(name)
+            torch.cuda.synchronize()
+            migrations.append((frm, name, time.perf_counter() - t0))
+            log(f"[failover] migration {frm} -> {name}: "
+                f"{migrations[-1][2]:.3f} s")
+        sess._migrate = timed
+        return sess
+
+    def fault(fused_only=False):
+        return lambda c: (c.get("engine") == "cuda"
+                          and c.get("op") == "update_add"
+                          and (c.get("fused") is True or not fused_only))
+
+    def faulted_run(sess, match):
+        props = sess.call(sssp.static_sssp, 0)
+        with faults.inject("kernel_launch", times=None, after=2,
+                           match=match) as inj:
+            props = sess.run_stream(stream, BATCH, sssp.stream_step, props)
+        return props, inj.fired
+
+    def same_as_2a(sess, props, tag):
+        for k in ("dist", "parent"):
+            if not torch.equal(props[k], sssp_cuda[k]):
+                raise AssertionError(f"[{tag}] {k} differs from phase 2a")
+        g = sess.engine.handle_graph(sess.handle)
+        for f in DYN_FIELDS:
+            if not torch.equal(getattr(g, f).cpu(), g_host[f]):
+                raise AssertionError(f"[{tag}] g.{f} differs from phase 2a")
+
+    def hops_twice():
+        sess = bind(failover=True)
+        sess._failover.probe_base_s = 3600.0   # stays on torch below
+        return sess, faulted_run(sess, fault())
+
+    tag = "failover cuda -> cuda_chained -> torch"
+    (sa, (props_a, fired)), _, _ = window(torch, counts, tag, hops_twice,
+                                          launched=("fused_relax_rows",))
+    h = sa.health
+    if not (sa.backend_name == "torch" and h.failovers == 2 and h.degraded):
+        raise AssertionError(f"[{tag}] ended on {sa.backend_name} after "
+                             f"{h.failovers} failovers")
+    same_as_2a(sa, props_a, tag)
+    log(f"[check] {tag}: the fault fired {fired} times, 2 failovers, "
+        f"{h.kernel_failures} kernel failures; dist, parent and every "
+        f"DynGraph array equal phase 2a's")
+
+    def hops_once():
+        sess = bind(failover=True)
+        sess._failover.probe_base_s = 0.0      # re-probe at the next call
+        return sess, faulted_run(sess, fault(fused_only=True))
+
+    tag = "failover cuda -> cuda_chained (a fused-only fault)"
+    (sb, (props_b, fired)), _, _ = window(
+        torch, counts, tag, hops_once,
+        launched=("fused_relax_rows", "relax_rowmin", "relax_rowargmin"))
+    if not (sb.backend_name == "cuda_chained" and sb.health.failovers == 1):
+        raise AssertionError(f"[{tag}] ended on {sb.backend_name} after "
+                             f"{sb.health.failovers} failovers")
+    same_as_2a(sb, props_b, tag)
+    log(f"[check] {tag}: stopped on cuda_chained, whose relax_rowmin and "
+        f"relax_rowargmin carried the stream; equal to phase 2a")
+
+    extra = repro_torch.random_updates(csr, percent=0.05, seed=3).window(
+        BATCH, 0, 1)
+    tag = "failover re-probe back to cuda"
+    props_b, _, _ = window(
+        torch, counts, tag,
+        lambda: sb.run_stream(extra, BATCH, sssp.stream_step, props_b),
+        launched=("fused_relax_rows", "merge_pool_sorted"),
+        silent=("relax_rowmin", "relax_rowargmin"))
+    h = sb.health
+    if not (sb.backend_name == "cuda" and h.reprobes >= 1
+            and not h.degraded):
+        raise AssertionError(f"[{tag}] on {sb.backend_name}, "
+                             f"{h.reprobes} re-probes")
+    props_a = sa.run_stream(extra, BATCH, sssp.stream_step, props_a)
+    for k in ("dist", "parent"):
+        if not torch.equal(props_b[k], props_a[k]):
+            raise AssertionError(f"[{tag}] {k} differs from the torch "
+                                 f"session's after the same batch")
+    log(f"[check] {tag}: {h.reprobes} re-probe, not degraded; dist and "
+        f"parent after one more batch equal the torch session's")
+    del sa, sb, props_a, props_b
+    torch.cuda.empty_cache()
+
+    def no_failover():
+        sess = bind()
+        props = sess.call(sssp.static_sssp, 0)
+        props = sess.run_stream(stream.window(BATCH, 0, 2), BATCH,
+                                sssp.stream_step, props)
+        h0 = sess.handle
+        before = {f: getattr(h0.g, f).clone() for f in DYN_FIELDS}
+        before.update({f"ell.{f}": getattr(h0.ell, f).clone()
+                       for f in ("ell_src", "ell_w", "row2dst",
+                                 "lane2slot")})
+        with faults.inject("kernel_launch", times=None, match=fault()):
+            try:
+                sess.apply(stream.batch(2, BATCH, device=DEV))
+            except KernelFailure:
+                pass
+            else:
+                raise AssertionError("the fault did not raise")
+        h1 = sess.handle
+        for f, x in before.items():
+            part, _, name = f.rpartition(".")
+            now = getattr(h1.ell if part else h1.g, name)
+            if not torch.equal(now, x):
+                raise AssertionError(f"the failed batch left {f} changed")
+        return sess
+
+    tag = "no failover: KernelFailure after rollback"
+    sd, _, _ = window(torch, counts, tag, no_failover)
+    if not (sd.backend_name == "cuda" and sd.health.kernel_failures == 1
+            and sd.health.last_error_kind == "KernelFailure"):
+        raise AssertionError(f"[{tag}] health {sd.health.as_dict()}")
+    sd.apply(stream.batch(2, BATCH, device=DEV))       # still serving
+    log(f"[check] {tag}: every DynGraph and ELL array as before the batch; "
+        f"the next apply succeeds")
+    log("[failover] migrations: " + "; ".join(
+        f"{a} -> {b} {t:.3f} s" for a, b, t in migrations))
+    del sd
+    torch.cuda.empty_cache()
+
+
+def pool_state(sess) -> dict:
+    """A pooled or solo session's arrays: the packed handle (DynGraph and
+    ELL) and its properties."""
+    tree, _ = sess.engine.pack_state(sess.handle)
+    out = {f"g.{k}": v for k, v in tree["g"].items()}
+    out.update({f"ell.{k}": v for k, v in tree["ell"].items()})
+    out.update({f"prop.{k}": v for k, v in sess.props.items()})
+    return out
+
+
+def same_state(torch, a: dict, b: dict, tag: str) -> None:
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"[{tag}] arrays {sorted(a)} vs {sorted(b)}")
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            raise AssertionError(f"[{tag}] {k} differs")
+
+
+def pool_fresh(torch, np, d_src, d_dst, n, size, seed) -> list:
+    """A sorted admitted batch of ``size`` fresh edges for a pool."""
+    rng = np.random.default_rng(seed)
+    pool_keys = (d_src.long() * n + d_dst.long()).cpu().numpy()
+    fk = np.unique(rng.integers(0, n, size=2 * size) * np.int64(n)
+                   + rng.integers(0, n, size=2 * size))
+    fk = fk[~np.isin(fk, pool_keys)][:size]
+    fresh = [torch.from_numpy(x.astype(np.int32)).to(DEV)
+             for x in (fk // n, fk % n, rng.integers(1, 100, size=size))]
+    fresh.append(torch.ones(size, dtype=torch.bool, device=DEV))
+    return fresh
+
+
+def check_merge_batched(torch, np, FK, cases=MERGE_CASES,
+                        widths=MERGE_WIDTHS) -> list:
+    """Each MERGE_CASES entry stacked S wide (each session its own draw)
+    through merge_pool_sorted_batched, against its plain version and S
+    solo merge_pool_sorted launches, bit for bit; a line a case."""
+    lines = []
+    for i, (name, D, B, pool_used, batch_used, ties, where) in \
+            enumerate(cases):
+        for S in widths:
+            sessions = [merge_case(np, 1000 * i + s, D, B, pool_used,
+                                   batch_used, ties, where)
+                        for s in range(S)]
+            st = [torch.from_numpy(np.stack(col)).to(DEV)
+                  for col in zip(*sessions)]
+            with junk_outputs(torch):
+                got = FK.merge_pool_sorted_batched(*st, n=MERGE_N)
+                solo = [FK.merge_pool_sorted(*(x[s] for x in st),
+                                             n=MERGE_N) for s in range(S)]
+            want = FK.merge_pool_sorted_batched_plain(*st, MERGE_N)
+            solo = tuple(torch.stack(col) for col in zip(*solo))
+            torch.cuda.synchronize()
+            try:
+                max_abs_err(torch, got, want)
+                max_abs_err(torch, got, solo)
+            except AssertionError as exc:
+                raise RowMismatch({"merge_pool_sorted_batched":
+                                   f"{name}, S={S}: {exc}"}) from None
+        lines.append(f"{name}: D={D} B={B}, S {'/'.join(map(str, widths))}"
+                     f", bit-exact against the plain version and S solo "
+                     f"launches")
+    return lines
+
+
+def pool_phase(torch, np, repro_torch, counts, args, FK) -> dict:
+    """Phase 2f, the serving pool: ``POOL_TENANTS`` tenants on one RMAT
+    graph in ``vmap``, ``scan`` and ``off`` modes, against each other and
+    solo sessions; then the batched merge against its plain version and
+    solo launches, timed at the pool's shape.  Returns its record."""
+    import tempfile
+    from repro_torch import dsl_programs
+    from repro_torch.core import registry
+    from repro_torch.serve import SessionPool
+    n, edges, w = repro_torch.rmat_graph(POOL_SCALE, POOL_DEGREE, seed=1)
+    keep = edges[:, 0] != edges[:, 1]
+    csr = repro_torch.build_csr(n, edges[keep], w[keep], device=DEV)
+    del edges, w, keep
+    streams = [repro_torch.random_updates(csr, percent=POOL_PERCENT, seed=t)
+               for t in range(POOL_TENANTS)]
+    batches = [[s.batch(i, POOL_BATCH, device=DEV) for i in range(POOL_TICKS)]
+               for s in streams]
+    prog = repro_torch.compile(dsl_programs.path("sssp"))
+    names = [f"t{t}" for t in range(POOL_TENANTS)]
+    log(f"[pool] rmat {POOL_SCALE} degree {POOL_DEGREE}, self-loops "
+        f"dropped: n={n} E={csr.num_edges} | {POOL_TENANTS} tenants "
+        f"({POOL_ARMED} armed DynSSSP), {POOL_PERCENT}% updates each, "
+        f"batches of {POOL_BATCH}, {POOL_TICKS} ticks, max_resident "
+        f"{POOL_RESIDENT}")
+    states, stats, launches = {}, {}, {}
+    structural = POOL_TENANTS - POOL_ARMED
+    for mode in ("vmap", "scan", "off"):
+        registry.clear_shared_engines()
+        spill = tempfile.TemporaryDirectory()
+        pool = SessionPool(prog, backend="cuda", batch_mode=mode,
+                           max_resident=POOL_RESIDENT, spill_dir=spill.name,
+                           max_pending=4 * POOL_TENANTS, device=DEV)
+        for t, nm in enumerate(names):
+            sess = pool.bind(nm, csr, capacity=POOL_CAPACITY)
+            if t < POOL_ARMED:
+                sess.run("DynSSSP", batchSize=POOL_BATCH, src=0)
+        ticks, syncs, spill_s = [], [], {"evict": 0.0, "_restore": 0.0,
+                                           "mega": 0.0}
+        run = pool._batcher.run
+
+        def timed(name):
+            inner = getattr(pool, name)
+
+            def call(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return inner(*a, **kw)
+                finally:
+                    spill_s[name] += time.perf_counter() - t0
+            setattr(pool, name, call)
+
+        timed("evict")
+        timed("_restore")
+
+        def counted(*a, **kw):
+            t0 = time.perf_counter()
+            out, k = count_syncs(torch, lambda: run(*a, **kw))
+            torch.cuda.synchronize()
+            spill_s["mega"] += time.perf_counter() - t0
+            syncs.append(k)
+            return out
+
+        pool._batcher.run = counted
+
+        def serve():
+            for i in range(POOL_TICKS):
+                with Timer(torch) as t:
+                    pool.apply_many([(nm, batches[j][i])
+                                     for j, nm in enumerate(names)])
+                ticks.append(t.s)
+
+        silent = ROW_KERNELS + ("segment_sum_sorted",)
+        if mode == "vmap":
+            _, got, t_all = window(torch, counts, f"pool {mode}", serve,
+                                   launched=("merge_pool_sorted_batched",),
+                                   silent=silent)
+        else:
+            _, got, t_all = window(
+                torch, counts, f"pool {mode}", serve,
+                silent=silent + ("merge_pool_sorted_batched",))
+        st = pool.stats()
+        warm = np.asarray(ticks[1:])
+        p50, p99 = np.percentile(warm, [50, 99])
+        log(f"[pool {mode}] tick p50 {p50 * 1e3:.2f} ms p99 "
+            f"{p99 * 1e3:.2f} ms ({p50 / POOL_TENANTS * 1e6:.0f} "
+            f"us/session; first tick {ticks[0] * 1e3:.1f} ms) | "
+            f"mega_calls {st['mega_calls']} mega_sessions "
+            f"{st['mega_sessions']} sequential_fallbacks "
+            f"{st['sequential_fallbacks']} evictions {st['evictions']} "
+            f"restores {st['restores']} | host syncs a mega-call "
+            f"{sorted(set(syncs))} | solo runs {pool.solo_runs} | of "
+            f"{t_all:.3f} s: spills {spill_s['evict']:.3f} s, restores "
+            f"{spill_s['_restore']:.3f} s, mega-calls {spill_s['mega']:.3f} "
+            f"s")
+        armed_applies = POOL_ARMED * POOL_TICKS
+        if pool.solo_runs:
+            raise AssertionError(f"[pool {mode}] tenants ran solo: "
+                                 f"{pool.solo_runs}")
+        if st["evictions"] == 0 or st["restores"] == 0:
+            raise AssertionError(f"[pool {mode}] no tenant was evicted")
+        if mode == "off":
+            want = {"merge_pool_sorted": POOL_TENANTS * POOL_TICKS,
+                    "merge_pool_sorted_batched": 0}
+            if st["mega_calls"] or st["sequential_fallbacks"] != \
+                    POOL_TENANTS * POOL_TICKS:
+                raise AssertionError(f"[pool off] {st}")
+        else:
+            want = {"merge_pool_sorted": (armed_applies if mode == "vmap"
+                                          else POOL_TENANTS * POOL_TICKS),
+                    "merge_pool_sorted_batched": (POOL_TICKS
+                                                  if mode == "vmap" else 0)}
+            if not (st["mega_calls"] == POOL_TICKS
+                    and st["mega_sessions"] == structural * POOL_TICKS
+                    and st["sequential_fallbacks"] == armed_applies):
+                raise AssertionError(f"[pool {mode}] {st}")
+            if max(syncs) > 2:
+                raise AssertionError(f"[pool {mode}] a mega-call made "
+                                     f"{max(syncs)} host syncs, at "
+                                     f"{SYNC_SITES}")
+        for k, v in want.items():
+            if got[k] != v:
+                raise AssertionError(f"[pool {mode}] {k} launched {got[k]} "
+                                     f"times, expected {v}")
+        states[mode] = {nm: pool_state(pool.session(nm)) for nm in names}
+        stats[mode], launches[mode] = (st, syncs, p50, p99), got
+        del pool
+        spill.cleanup()
+    for mode in ("scan", "off"):
+        for nm in names:
+            same_state(torch, states[mode][nm], states["vmap"][nm],
+                       f"pool {mode} vs vmap, {nm}")
+
+    solo_syncs = []
+    for t, nm in enumerate(names):
+        if t < POOL_ARMED:
+            solo = prog.bind(csr, backend="cuda", capacity=POOL_CAPACITY,
+                             device=DEV)
+            solo.run("DynSSSP", batchSize=POOL_BATCH, src=0)
+        else:
+            solo = repro_torch.bind_graph(csr, backend="cuda",
+                                          capacity=POOL_CAPACITY, device=DEV)
+        for i, b in enumerate(batches[t]):
+            if t >= POOL_ARMED and i == POOL_TICKS - 1:
+                admitted = solo._admit_for_apply(b)
+                _, k = count_syncs(torch,
+                                   lambda: solo._apply_admitted(admitted))
+                solo_syncs.append(k)
+            else:
+                solo.apply(b)
+        same_state(torch, states["vmap"][nm], pool_state(solo),
+                   f"pool vs solo, {nm}")
+        del solo
+    log(f"[pool] host syncs by line (mega-calls and solo applies): "
+        f"{SYNC_SITES}")
+    log(f"[check] pool: every tenant's DynGraph, ELL and property arrays "
+        f"equal across vmap, scan and off and to solo sessions; host syncs "
+        f"a solo structural apply {sorted(set(solo_syncs))}, a mega-call "
+        f"{sorted(set(stats['vmap'][1]))} (one round of "
+        f"{structural} tenants)")
+
+    # the batched merge against its plain version and solo launches
+    for line in check_merge_batched(torch, np, FK):
+        log(f"[merge batched] {line}")
+    S = structural
+    gs = [states["vmap"][nm] for nm in names[POOL_ARMED:]]
+    pool_arrays = [torch.stack([x[f"g.d_{f}"] for x in gs])
+                   for f in ("src", "dst", "w", "alive")]
+    D = pool_arrays[0].shape[1]
+    fresh = [torch.stack(col) for col in zip(*(
+        pool_fresh(torch, np, x["g.d_src"], x["g.d_dst"], n, POOL_BATCH,
+                   seed=s)
+        for s, x in enumerate(gs)))]
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
+
+    def solo_launches():
+        return [FK.merge_pool_sorted(*(x[s] for x in pool_arrays + fresh),
+                                     n=n) for s in range(S)]
+
+    keys = torch.cat([pool_arrays[0].long() * (n + 1) + pool_arrays[1],
+                      fresh[0].long() * (n + 1) + fresh[1]], dim=1)
+    rec = check_kernel(
+        torch, args, flush, "merge_pool_sorted_batched",
+        "src/repro_torch/csrc/repair.cu",
+        "src/repro/kernels/pallas_repair.py:217",
+        launches["vmap"]["merge_pool_sorted_batched"],
+        lambda: FK.merge_pool_sorted_batched(*pool_arrays, *fresh, n=n),
+        lambda: FK.merge_pool_sorted_batched_plain(*pool_arrays, *fresh, n),
+        nbytes(*pool_arrays, *fresh), S * merge_ops(D),
+        library=lambda: torch.sort(keys, dim=1, stable=True),
+        S=S, D=D, B=POOL_BATCH, n=n)
+    solo = tuple(torch.stack(col) for col in zip(*solo_launches()))
+    max_abs_err(torch, outputs(FK.merge_pool_sorted_batched(
+        *pool_arrays, *fresh, n=n)), solo)
+    rec["solo_ms"] = median_ms(torch, solo_launches, args.reps, flush)
+    rec["variant"] = (f"the solo merge's tiles over a grid of (tiles, S), "
+                      f"one launch for S = {S} sessions; vmap(pallas_call) "
+                      f"in the reference's pool (src/repro/serve/batch.py)")
+    log(f"[kernel] merge_pool_sorted_batched: {rec['ms']:.4f} ms for S={S} "
+        f"against {rec['solo_ms']:.4f} ms for {S} solo launches "
+        f"(bound {rec['bound_ms']:.4f} ms), bit-exact against both")
+    del states, pool_arrays, fresh, keys, flush, csr, batches
+    registry.clear_shared_engines()
+    torch.cuda.empty_cache()
+    return rec
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1632,6 +2120,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"cuda and torch backends differ in g.{f}")
     log("[check] SSSP dist, parent and all DynGraph arrays bit-identical to "
         "the torch backend")
+    g_host = {f: getattr(cuda_g, f).cpu() for f in DYN_FIELDS}
     del tsess, tprops, tg, cuda_g
     torch.cuda.empty_cache()
 
@@ -1706,6 +2195,14 @@ def main(argv=None) -> int:
     dsl_phase(torch, np, repro_torch, counts, args, csr, stream, sssp_cuda,
               ref, (sssp_static, pr_static), silent=ROW_KERNELS)
     mark("dsl")
+
+    # 2f. failover on the smoke's graph, then the serving pool
+    failover_phase(torch, repro_torch, counts, csr, stream, sssp_cuda,
+                   g_host)
+    del g_host
+    mark("failover")
+    kernels.append(pool_phase(torch, np, repro_torch, counts, args, FK))
+    mark("pool")
 
     # -- 5. LM serving -------------------------------------------------------
     del csr, stream, post, sssp_cuda, pr_cuda, g

@@ -11,7 +11,10 @@ per-op kernel chain).  Algorithms: the paper's DSL programs
 hand-staged ``repro_torch.algos.{sssp,pagerank,triangles}`` through
 ``bind_graph``.  LM serving of attention + MLP models:
 ``repro_torch.models`` and ``repro_torch.launch.serve`` (backends
-``cuda``, with the flash-attention kernel, and ``torch``).
+``cuda``, with the flash-attention kernel, and ``torch``).  Runtime and
+serving: ``bind_graph(..., failover=True)`` (``cuda → cuda_chained →
+torch``), the chaos seams of ``repro_torch.runtime.faults``, and the
+multi-tenant ``repro_torch.serve.SessionPool``.
 """
 from repro_torch import dsl_programs
 from repro_torch.api import (CompiledProgram, GraphSession, Session,

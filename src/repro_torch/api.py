@@ -41,8 +41,24 @@ Entry points run on the card unless ``device="cpu"`` is asked for.
 Checkpoints share ``repro``'s layout and state kinds: a checkpoint that
 ``repro`` wrote names its backend ``jnp`` or ``pallas``, so
 ``restore_session`` takes ``backend="torch"`` or ``"cuda"`` for it.
-Backend failover waits for a later slice; ``failover=`` other than
-``None`` raises ``NotImplementedError``.
+
+Backend failover is opt-in: ``bind_graph(csr, backend="cuda",
+failover=True)`` (or an explicit tuple of registry names) arms the chain
+``cuda → cuda_chained → torch``.  A kernel that fails to build or
+launch (or a fault planted at a ``runtime.faults`` seam) rolls the batch
+back, moves the graph to the next backend on the same device (packed
+state → host → ``state_to_csr`` → ``prepare``) and replays the batch
+there; a backoff timer re-probes the preferred backend.
+``session.health`` counts every hop (``failovers``, ``kernel_failures``,
+``reprobes``, ``degraded``, ``backend``), and an exhausted chain raises
+:class:`KernelFailure`.  Without ``failover=`` a kernel fault raises
+after the rollback.  Failover recovers from faults that raise and leave
+the CUDA context usable: a kernel that fails to build, a launch error
+that the wrapper reports (``kernels/_build.py: raise_on``), a planted
+fault.  A sticky fault (an illegal address, a device-side assert)
+poisons the context for every backend on that card, so no hop can
+recover from it and none is tried: the error it leaves surfaces at the
+next call, from whichever backend makes it.
 """
 from __future__ import annotations
 
@@ -58,23 +74,25 @@ from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.core.dsl.codegen import (ArmedRun, CodegenError, Program,
                                           compile_source)
 from repro_torch.core.engine import Engine, props_from_numpy, state_to_csr
-from repro_torch.core.registry import (available_backends, make_engine,
-                                       register_engine)
+from repro_torch.core.registry import (available_backends, failover_chain,
+                                       make_engine, register_engine)
 from repro_torch.graph.csr import CSR
 from repro_torch.graph.updates import UpdateBatch, UpdateStream
+from repro_torch.runtime import faults as _faults
 from repro_torch.runtime import watchdog as _watchdog
 from repro_torch.runtime.admission import DEFAULT_MAX_BATCH, AdmissionGuard
 from repro_torch.runtime.errors import (AdmissionError, DivergenceError,
-                                        PoolOverflowError)
+                                        KernelFailure, PoolOverflowError)
+from repro_torch.runtime.failover import FailoverPolicy
 from repro_torch.runtime.health import SessionHealth
-from repro_torch.tensors import to_device
+from repro_torch.tensors import resolve_device, to_device
 
 __all__ = [
     "compile", "CompiledProgram", "Session", "GraphSession", "bind_graph",
     "SessionResult", "PropertyView", "register_engine",
     "available_backends", "restore_session", "props_from_numpy",
-    "AdmissionError", "PoolOverflowError", "DivergenceError",
-    "SessionHealth",
+    "AdmissionError", "PoolOverflowError", "KernelFailure",
+    "DivergenceError", "SessionHealth",
 ]
 
 _DEFAULT_CAPACITY = 64
@@ -103,11 +121,55 @@ def compile(source_or_path: str) -> "CompiledProgram":
         return _compile_once(s, stamp)
 
 
-def _no_failover(failover) -> None:
-    if failover is not None:
-        raise NotImplementedError(
-            "backend failover waits for a later slice (ROADMAP Queue 1 "
-            "item 11)")
+def _dedupe_chain(names) -> tuple:
+    """Order-preserving dedupe of a failover candidate list, so a chain
+    that re-lists a backend constructs (and reports) it once."""
+    seen = set()
+    out = []
+    for name in names:
+        if name not in seen:
+            seen.add(name)
+            out.append(name)
+    return tuple(out)
+
+
+def _make_engine_failover(backend: str, failover, device=None,
+                          **backend_opts):
+    """Instantiate ``backend`` on ``device``; with failover enabled, a
+    factory that raises falls down the chain at bind time.  Returns
+    ``(engine, bound_registry_name)``.  The device is resolved first: a
+    missing card is no backend fault, and no hop moves to the CPU."""
+    if not failover:
+        return make_engine(backend, device=device, **backend_opts), backend
+    device = resolve_device(device)
+    chain = failover_chain(backend) if failover is True else tuple(failover)
+    last = None
+    for name in _dedupe_chain((backend, *chain)):
+        try:
+            # backend_opts are engine-specific (e.g. cuda k=): only the
+            # requested backend gets them; every candidate gets the device
+            opts = backend_opts if name == backend else {}
+            return make_engine(name, device=device, **opts), name
+        except Exception as e:       # noqa: BLE001 — bind-time failover
+            last = e
+    raise KernelFailure(
+        f"no backend in {_dedupe_chain((backend, *chain))} could be "
+        f"constructed", backend=backend, cause=last)
+
+
+def _post_bind_failover(sess: "GraphSession", requested: str, bound: str,
+                        failover) -> None:
+    """Record a bind-time degradation (the requested backend's factory
+    failed and a fallback was bound instead)."""
+    if bound == requested or not failover:
+        return
+    chain = failover_chain(requested) if failover is True \
+        else _dedupe_chain(failover)
+    sess._failover = FailoverPolicy(requested, chain)
+    sess._failover.degraded_from()
+    sess._health.preferred_backend = requested
+    sess._health.backend = bound
+    sess._health.failovers += 1
 
 
 def bind_graph(csr: CSR, backend: str = "cuda",
@@ -120,12 +182,16 @@ def bind_graph(csr: CSR, backend: str = "cuda",
                **backend_opts) -> "GraphSession":
     """An algorithm-agnostic session: a device-resident graph handle for
     hand-staged ``repro_torch.algos`` code, on ``device`` (default: the
-    card; the CSR is copied there if it lives elsewhere)."""
-    _no_failover(failover)
-    engine = make_engine(backend, device=device, **backend_opts)
-    return GraphSession(engine, csr, capacity, backend_name=backend,
+    card; the CSR is copied there if it lives elsewhere).
+    ``failover=True`` (or an explicit chain of registry names) arms
+    backend degradation (module docstring)."""
+    engine, bound = _make_engine_failover(backend, failover, device=device,
+                                          **backend_opts)
+    sess = GraphSession(engine, csr, capacity, backend_name=bound,
                         admission=admission, max_batch=max_batch,
-                        dead_letter=dead_letter)
+                        dead_letter=dead_letter, failover=failover)
+    _post_bind_failover(sess, backend, bound, failover)
+    return sess
 
 
 def _auto_capacity(stream: Optional[UpdateStream] = None,
@@ -225,7 +291,8 @@ class GraphSession:
                  backend_name: Optional[str] = None,
                  admission: Optional[str] = "clamp",
                  max_batch: int = DEFAULT_MAX_BATCH,
-                 dead_letter: int = 64):
+                 dead_letter: int = 64,
+                 failover=None):
         if not (capacity == "auto" or isinstance(capacity, int)):
             raise ValueError(f"capacity must be 'auto' or an int, "
                              f"got {capacity!r}")
@@ -246,6 +313,16 @@ class GraphSession:
                                      health=self._health)
         self._health.dead_letter = self._guard.buffer
         engine.raw_ids = self._guard.policy == "off"
+        # engines share Engine.name across registry entries (cuda and
+        # cuda_chained are both "cuda"), so the chain keys on the
+        # registry name the session was bound under
+        if failover:
+            chain = failover_chain(self._backend_name) if failover is True \
+                else _dedupe_chain(failover)
+            self._failover: Optional[FailoverPolicy] = FailoverPolicy(
+                self._backend_name, chain)
+        else:
+            self._failover = None
 
     # -- resident state ------------------------------------------------------
     @property
@@ -266,6 +343,9 @@ class GraphSession:
 
     @property
     def health(self) -> SessionHealth:
+        """Live fault-runtime counters; ``health.as_dict()`` is the
+        JSON-able snapshot."""
+        self._health.backend = self._backend_name
         return self._health
 
     @property
@@ -304,6 +384,7 @@ class GraphSession:
 
     def _sync_counters(self) -> tuple:
         """ONE host readback of the (overflow, used, dead) pool triple."""
+        _faults.fire("counter_sync", engine=self._backend_name)
         return self._engine._counters(self._handle)
 
     def _n_vertices(self) -> int:
@@ -354,17 +435,94 @@ class GraphSession:
             of = self._sync_counters()[0]
         self._of_base = of
 
+    # -- backend degradation -------------------------------------------------
     def _guarded(self, op: Callable[[], Any]):
-        """Run ``op``, counting backend faults in ``health``; the typed
-        data-plane faults pass through."""
+        """Run ``op`` with backend failover: a kernel fault hops down the
+        failover chain (migrating the graph through ``state_to_csr``) and
+        replays ``op`` on the survivor.  The typed data-plane faults
+        (admission, pool overflow, divergence) pass through: they are the
+        stream's fault, not the backend's.  ``op`` must read
+        ``self._engine`` / ``self._handle`` fresh so a replay sees the
+        migrated state.  Without a chain a fault is counted and raised."""
+        if self._failover is None:
+            try:
+                return op()
+            except (AdmissionError, PoolOverflowError, DivergenceError):
+                raise
+            except Exception as exc:   # noqa: BLE001 — health bookkeeping
+                self._health.kernel_failures += 1
+                self._health.record_error(exc)
+                raise
+        self._maybe_reprobe()
         try:
             return op()
         except (AdmissionError, PoolOverflowError, DivergenceError):
             raise
-        except Exception as exc:   # noqa: BLE001 — health bookkeeping
-            self._health.kernel_failures += 1
+        except Exception as exc:       # noqa: BLE001 — failover boundary
+            return self._degrade_and_retry(op, exc)
+
+    def _degrade_and_retry(self, op: Callable[[], Any], exc: Exception):
+        self._health.kernel_failures += 1
+        self._health.record_error(exc)
+        last = exc
+        for name in self._failover.candidates(self._backend_name):
+            try:
+                self._migrate(name)
+            except Exception as mexc:  # noqa: BLE001 — try next in chain
+                last = mexc
+                continue
+            self._failover.degraded_from()
+            self._health.failovers += 1
+            try:
+                return op()
+            except (AdmissionError, PoolOverflowError, DivergenceError):
+                raise
+            except Exception as nexc:  # noqa: BLE001 — keep degrading
+                self._health.kernel_failures += 1
+                self._health.record_error(nexc)
+                last = nexc
+        err = KernelFailure(
+            f"backend {self._failover.preferred!r} and its failover "
+            f"chain {tuple(self._failover.chain)} all failed",
+            backend=self._backend_name, cause=last)
+        self._health.record_error(err)
+        raise err
+
+    def _maybe_reprobe(self) -> None:
+        """Sticky degradation with periodic re-probe: once the backoff
+        window since the last failure elapses, move back to the preferred
+        backend; a failed probe doubles the window."""
+        if (self._backend_name == self._failover.preferred
+                or not self._failover.should_probe()):
+            return
+        self._health.reprobes += 1
+        try:
+            self._migrate(self._failover.preferred)
+        except Exception as exc:       # noqa: BLE001 — probe failed
+            self._failover.probe_failed()
             self._health.record_error(exc)
-            raise
+        else:
+            self._failover.recovered()
+
+    def _migrate(self, name: str) -> None:
+        """Re-bind the graph onto backend ``name`` on the same device:
+        ``pack_state`` (pure data access, so it works while the old
+        backend's kernels are broken) → ``state_to_csr`` (on the host) →
+        ``prepare`` on the new engine.  Value-preserving; the pool layout
+        resets.  Properties stay where they are: every backend of this
+        package pads vertex arrays to n."""
+        self._ensure_prepared()
+        old = self._engine
+        tree, hmeta = old.pack_state(self._handle)
+        csr, cap = state_to_csr(tree, hmeta, device=old.device)
+        engine = make_engine(name, device=old.device)
+        engine.raw_ids = old.raw_ids
+        handle = engine.prepare(csr, diff_capacity=cap)
+        self._engine = engine
+        self._handle = handle
+        self._backend_name = name
+        self._health.backend = name
+        self._of_base = self._sync_counters()[0]
 
     # -- divergence watchdog -------------------------------------------------
     def _watch(self, arrays: Dict[str, Any], where: str) -> None:
@@ -382,36 +540,55 @@ class GraphSession:
     def apply(self, batch: UpdateBatch) -> "GraphSession":
         """Apply one ΔG batch structurally (deletes then adds) after
         admission, growing the diff pool and replaying on overflow."""
+        admitted = self._admit_for_apply(batch)
+        if admitted is not None:
+            self._apply_admitted(admitted)
+        return self
+
+    def _admit_for_apply(self, batch: UpdateBatch) -> Optional[UpdateBatch]:
+        """The admission half of :meth:`apply`: guard the batch and do the
+        cursor bookkeeping of a batch consumed without device work
+        (quarantined, or no active lane).  Returns the admitted batch or
+        None.  The serving pool admits through here and executes through
+        its batched path."""
         self._ensure_prepared(batch=batch)
         admitted = self._guard.admit(batch, self._n_vertices(),
                                      cursor=self._cursor)
-        if admitted is not None and self._guard.policy != "off" and not (
+        if admitted is None:           # quarantined: consumed, not applied
+            self._cursor += 1
+            return None
+        if self._guard.policy != "off" and not (
                 bool(admitted.add_mask.any())
                 or bool(admitted.del_mask.any())):
             # zero active lanes: skip the launch entirely
             self._health.empty_skipped += 1
-            admitted = None
-        if admitted is not None:
-            self._guarded(lambda: self._apply_admitted(admitted))
-        self._cursor += 1
-        return self
+            self._cursor += 1
+            return None
+        return admitted
 
     def _apply_admitted(self, admitted: UpdateBatch) -> None:
-        base = self._handle
+        """The execution half of :meth:`apply`: deletes then adds under
+        the failover guard, with the bounded grow-and-replay backstop."""
 
-        def attempt():
-            h = self._engine.update_del(base, admitted)
-            self._handle = self._engine.update_add(h, admitted)
+        def work():
+            base = self._handle
 
-        def regrow():
-            nonlocal base
-            base = self._handle = self._engine.grow(base)
+            def attempt():
+                h = self._engine.update_del(base, admitted)
+                self._handle = self._engine.update_add(h, admitted)
 
-        def rollback():
-            self._handle = base
+            def regrow():
+                nonlocal base
+                base = self._handle = self._engine.grow(base)
 
-        self._retry_on_overflow(attempt, regrow, batch=admitted,
-                                rollback=rollback)
+            def rollback():
+                self._handle = base
+
+            self._retry_on_overflow(attempt, regrow, batch=admitted,
+                                    rollback=rollback)
+
+        self._guarded(work)
+        self._cursor += 1
 
     # -- hand-staged drivers -------------------------------------------------
     def call(self, fn: Callable, *args, **kwargs):
@@ -800,9 +977,33 @@ class Session(GraphSession):
                 self._health.admitted += 1
             self._apply_armed(batch)
 
+    # -- failover ------------------------------------------------------------
+    def _migrate(self, name: str) -> None:
+        """Backend migration with the armed Batch loop carried across: the
+        paused frame is serialized on the failing backend (pure data
+        access), the graph moves through the alive-edge list, and the
+        frame is re-staged and deserialized on the survivor."""
+        armed_state = None
+        if self._armed is not None:
+            arrays, armed_meta = self._armed.serialize()
+            for pname, m in armed_meta["env"].items():
+                if m["kind"] == "prop" and m.get("bound") and m["is_edge"]:
+                    raise KernelFailure(
+                        f"cannot fail over to {name!r}: armed edge "
+                        f"property {pname!r} is bound to the "
+                        f"{self._backend_name!r} pool layout",
+                        backend=name)
+            armed_state = (arrays, armed_meta)
+        super()._migrate(name)
+        # staged executables hold the old engine
+        self._staged_funcs.clear()
+        if armed_state is not None:
+            self._rearm(armed_state[1], armed_state[0])
+
     def _rearm(self, armed_meta: dict, arrays: dict) -> None:
         """Re-stage an armed Batch loop on the current engine and rebuild
-        its paused frame from serialized arrays (``restore_session``)."""
+        its paused frame from serialized arrays (failover migration and
+        ``restore_session``)."""
         staged = self._staged(armed_meta["func"])
         self._armed = ArmedRun.deserialize(staged, self._handle, arrays,
                                            armed_meta)
@@ -887,12 +1088,16 @@ class CompiledProgram:
         one-shot run (armed sessions start at the default size), with
         grow-on-overflow as the backstop either way.  ``admission`` is
         the ΔG validation policy (``reject | clamp | quarantine |
-        off``), as for :func:`bind_graph`."""
-        _no_failover(failover)
-        engine = make_engine(backend, device=device, **backend_opts)
-        return Session(self, engine, csr, capacity, backend_name=backend,
+        off``) and ``failover`` the degradation chain, as for
+        :func:`bind_graph`; a backend that fails to construct at bind
+        time leaves the session degraded on the first survivor."""
+        engine, bound = _make_engine_failover(backend, failover,
+                                              device=device, **backend_opts)
+        sess = Session(self, engine, csr, capacity, backend_name=bound,
                        admission=admission, max_batch=max_batch,
-                       dead_letter=dead_letter)
+                       dead_letter=dead_letter, failover=failover)
+        _post_bind_failover(sess, backend, bound, failover)
+        return sess
 
     def __repr__(self):
         return f"CompiledProgram(functions={self.functions})"

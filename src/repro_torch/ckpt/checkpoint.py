@@ -34,13 +34,15 @@ from repro_torch.runtime.errors import CheckpointCorrupt
 # Test seam for the crash-injection tests: when set, it is called with a
 # named commit-protocol point ("shard", "manifest", "committed",
 # "renamed") and may raise to simulate a kill at exactly that boundary.
-# None in production.  (The reference also fires its chaos harness's
-# "checkpoint_write" seam at these points; that harness comes with the
-# runtime port, ROADMAP Queue 1 item 11.)
+# None in production.  The same points also cross the chaos harness's
+# "checkpoint_write" seam (repro_torch.runtime.faults), which generalizes
+# this hook; _crash_point stays for the commit-protocol tests.
 _crash_point: Optional[Callable[[str], None]] = None
 
 
 def _maybe_crash(point: str) -> None:
+    from repro_torch.runtime import faults as _faults
+    _faults.fire("checkpoint_write", point=point)
     if _crash_point is not None:
         _crash_point(point)
 

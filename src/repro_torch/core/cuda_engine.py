@@ -40,7 +40,9 @@ from repro_torch.graph.updates import UpdateBatch
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import repair as FK
 from repro_torch.kernels.ell import (Ell, ell_apply_add, ell_apply_del,
-                                     ell_from_state, ell_state, pack_ell)
+                                     ell_from_state, ell_revive, ell_state,
+                                     pack_ell, pool_moved)
+from repro_torch.runtime import faults as _faults
 from repro_torch.tensors import in_range, segment_max
 
 
@@ -48,6 +50,14 @@ from repro_torch.tensors import in_range, segment_max
 class CudaHandle:
     g: DynGraph
     ell: Ell
+
+
+@dataclasses.dataclass(frozen=True)
+class StagedAdd:
+    """A batch staged by ``CudaEngine.update_stacked``: the graph after
+    its adds, and the handle (graph and pack) after its deletes."""
+    g: DynGraph
+    pre: CudaHandle
 
 
 class CudaEngine(TorchEngine):
@@ -102,19 +112,53 @@ class CudaEngine(TorchEngine):
                             batch.del_mask)
         return CudaHandle(g=g, ell=ell)
 
-    def update_add(self, h: CudaHandle, batch: UpdateBatch) -> CudaHandle:
+    def _add_graph(self, g: DynGraph, batch: UpdateBatch, pool_merge):
+        # both regimes launch kernels here (fused: the merge-path pool
+        # fold; chained: the ELL pack update after it), so the chaos seam
+        # sits above the branch; ctx carries `fused` for targeting
+        _faults.fire("kernel_launch", engine=self.name, fused=self.fused,
+                     op="update_add")
         if self.fused:
             # one merge-path launch folds the admitted batch into the pool
-            g = diffcsr.update_csr_add(h.g, batch.add_src, batch.add_dst,
-                                       batch.add_w, batch.add_mask,
-                                       pool_merge=FK.merge_pool_sorted)
-        else:
-            g = super().update_add(h.g, batch)
+            return diffcsr.update_csr_add(g, batch.add_src, batch.add_dst,
+                                          batch.add_w, batch.add_mask,
+                                          pool_merge=pool_merge)
+        return super().update_add(g, batch)
+
+    def update_add(self, h: CudaHandle, batch: UpdateBatch) -> CudaHandle:
+        g = self._add_graph(h.g, batch, FK.merge_pool_sorted)
         # pull layout: slots hold SOURCES
         ell = ell_apply_add(h.ell, h.g, g, batch.add_src, batch.add_dst,
                             batch.add_w, batch.add_mask,
                             slot_value=batch.add_src, repack=self._repack)
         return CudaHandle(g=g, ell=ell)
+
+    def update_stacked(self, h: CudaHandle, batch: UpdateBatch,
+                       mapped: bool = True):
+        """``update_add``'s host branch left to the caller: ``staged``
+        holds the graph after the adds and the handle before them, and
+        ``repack`` is the pool-moved flag.  Mapped over a session axis,
+        the merge goes through its custom op (``FK.merge_pool_sorted_op``,
+        whose vmap rule launches the batched kernel once for the axis);
+        member by member, through the solo wrapper (a custom op's first
+        direct call imports torch's compiler stack)."""
+        h1 = self.update_del(h, batch)
+        g = self._add_graph(h1.g, batch, FK.merge_pool_sorted_op if mapped
+                            else FK.merge_pool_sorted)
+        return (StagedAdd(g=g, pre=h1), diffcsr.pool_counters(g),
+                pool_moved(h1.g, g))
+
+    def finish_stacked(self, staged: StagedAdd, batch: UpdateBatch,
+                       repack: bool) -> CudaHandle:
+        """A moved pool is repacked; otherwise only now are the revivals
+        resolved against the pre-add graph and patched, so no member
+        whose pack is rebuilt pays for them."""
+        if repack:
+            return self._handle(staged.g)
+        ell = ell_revive(staged.pre.ell, staged.pre.g, batch.add_src,
+                         batch.add_dst, batch.add_w, batch.add_mask,
+                         slot_value=batch.add_src)
+        return CudaHandle(g=staged.g, ell=ell)
 
     def batch_edge_flags(self, h: CudaHandle, qs, qd, mask):
         return super().batch_edge_flags(h.g, qs, qd, mask)
@@ -148,6 +192,8 @@ class CudaEngine(TorchEngine):
                             f"plus ELL pack), got {type(h).__name__}")
         if not self._kernel_compatible(sw):
             return super()._run_sweep(h.g, sw, props)
+        _faults.fire("kernel_launch", engine=self.name, fused=self.fused,
+                     op="sweep")
         if self.fused:
             return self._run_sweep_fused(h, sw, props)
         return self._run_sweep_chained(h, sw, props)

@@ -27,6 +27,7 @@ from repro_torch.graph import diffcsr
 from repro_torch.graph.csr import CSR, INT, build_csr
 from repro_torch.graph.diffcsr import BOOL, DynGraph
 from repro_torch.graph.updates import UpdateBatch
+from repro_torch.runtime import faults as _faults
 from repro_torch.tensors import (clamp_index, in_range, resolve_device,
                                  segment_max, segment_min, set_drop, take,
                                  to_device)
@@ -202,6 +203,23 @@ class Engine:
         """Device-side reclamation of tombstoned diff slots."""
         raise NotImplementedError
 
+    def update_stacked(self, handle, batch, mapped: bool = True):
+        """Deletes then adds with no host read, the body that
+        ``serve.batch`` maps over a session axis (``torch.func.vmap``,
+        ``mapped=True``) or runs member by member.  Returns ``(staged,
+        counters, repack)``: what :meth:`finish_stacked` finishes, the
+        (overflow, used, dead) triple, and a 0-d bool, the host branch
+        that a solo ``update_add`` takes (false here: nothing is left)."""
+        h = self.update_add(self.update_del(handle, batch), batch)
+        return (h, self.handle_counters(h),
+                torch.zeros((), dtype=BOOL, device=self.device))
+
+    def finish_stacked(self, staged, batch, repack: bool):
+        """The handle from :meth:`update_stacked`'s ``staged``, once the
+        host has read its ``repack`` flag (mapped over a group's unflagged
+        members by ``serve.batch``)."""
+        return staged
+
     def _diff_capacity(self, handle) -> int:
         return self.handle_graph(handle).diff_capacity
 
@@ -229,6 +247,8 @@ class Engine:
                        for j in range(k)]
             while True:
                 snap = (handle, carry)
+                _faults.fire("segment_scan", engine=self.name, start=i,
+                             count=k)
                 for batch in batches:
                     handle, carry = step_fn(self, handle, batch, carry)
                 of, _used, dead = self._counters(handle)
@@ -464,6 +484,8 @@ class TorchEngine(Engine):
 
     # -- stream executor hooks ---------------------------------------------
     def grow(self, g: DynGraph, factor: float = 2.0) -> DynGraph:
+        _faults.fire("pool_merge", engine=self.name,
+                     diff_capacity=g.diff_capacity)
         cap = max(int(g.diff_capacity * factor), g.diff_capacity + 16)
         return diffcsr.merge(g, diff_capacity=cap)
 

@@ -10,12 +10,15 @@ Built-ins are registered by module path and imported on first use:
 * ``cuda_chained`` — the same engine on the per-op kernel chain
   (:func:`~repro_torch.core.cuda_engine.CudaChainedEngine`).
 
-``register_engine`` plugs in more.
+``register_engine`` plugs in more.  ``shared_engine`` hands the serving
+pool one engine per (backend, scope, options); ``failover_chain`` names
+where a session falls when its backend's kernels fail.
 """
 from __future__ import annotations
 
 import importlib
-from typing import Callable, Dict, List
+import threading
+from typing import Any, Callable, Dict, List, Tuple
 
 from repro_torch.core.engine import Engine
 
@@ -91,3 +94,81 @@ def make_engine(name: str, **options) -> Engine:
 def available_backends() -> List[str]:
     """Sorted names of every registered backend."""
     return sorted(set(_BUILTIN_PATHS) | set(_FACTORIES))
+
+
+# ---------------------------------------------------------------------------
+# Shared engines (repro_torch.serve)
+# ---------------------------------------------------------------------------
+# A session pool binds all same-shape tenants to ONE engine per (backend,
+# scope, options).  Engines keep per-graph host state (``_n`` is set by
+# ``prepare``, the max-degree cache by ``count_wedges``), so the key MUST
+# scope by anything that state depends on: the pool passes the graph's
+# vertex count as ``scope``.  Sharing is safe exactly when every session
+# on the instance would set identical host state.
+
+_SHARED_ENGINES: Dict[Tuple, Engine] = {}
+_SHARED_LOCK = threading.Lock()
+
+
+def _device_count() -> int:
+    """Process-wide card count (a monkeypatch seam for the mesh-key
+    tests)."""
+    import torch
+    return torch.cuda.device_count()
+
+
+def _mesh_token(name: str, options: Dict[str, Any]):
+    """Extra shared-key component for mesh-bound engines (a factory with
+    a true ``mesh_scoped`` attribute): the shard count the factory would
+    resolve, so a pool never hands a tenant an engine built for another
+    device set.  No engine of this package is mesh-scoped yet."""
+    try:
+        factory = engine_factory(name)
+    except UnknownBackendError:
+        return None
+    if not getattr(factory, "mesh_scoped", False):
+        return None
+    shards = options.get("num_shards")
+    if not shards:
+        devs = options.get("devices")
+        shards = len(devs) if devs is not None else _device_count()
+    return ("mesh", int(shards))
+
+
+def shared_engine(name: str, scope: Any = None, **options) -> Engine:
+    """One cached engine instance per ``(name, scope, mesh, options)``:
+    the pool's shared binding.  ``scope`` must capture whatever
+    per-graph host state the engine carries (vertex count at minimum);
+    callers that cannot guarantee a safe scope use :func:`make_engine`."""
+    key = (name, scope, _mesh_token(name, options),
+           tuple(sorted(options.items())))
+    with _SHARED_LOCK:
+        eng = _SHARED_ENGINES.get(key)
+        if eng is None:
+            eng = _SHARED_ENGINES[key] = make_engine(name, **options)
+        return eng
+
+
+def clear_shared_engines() -> None:
+    """Drop every shared engine."""
+    with _SHARED_LOCK:
+        _SHARED_ENGINES.clear()
+
+
+# Degradation order per backend: where a session falls when its bound
+# backend's kernels fail to build or launch.  Every chain bottoms out at
+# "torch", the plain tensor engine with no hand kernel.  Keys are
+# *registry names*, not Engine.name (cuda and cuda_chained share
+# Engine.name == "cuda"; the registry name is what bind() stores).
+DEFAULT_CHAIN: Dict[str, tuple] = {
+    "cuda": ("cuda_chained", "torch"),
+    "cuda_chained": ("torch",),
+}
+
+
+def failover_chain(name: str) -> tuple:
+    """The fallback backends to try, in order, when ``name`` fails.
+    Unknown or custom backends degrade straight to the plain engine."""
+    if name == "torch":
+        return ()
+    return DEFAULT_CHAIN.get(name, ("torch",))

@@ -74,6 +74,16 @@
 //   the warp.  No atomics, one launch.  The lists must be sorted: on an
 //   unsorted tail (an unchecked session's rows with src > n) any merge
 //   path may order that tail differently.
+//
+// merge_pool_sorted_batched
+//   The counterpart of vmap(pallas_call(_merge_kernel)), the reference
+//   serving pool's mega-call (src/repro/serve/batch.py): S independent
+//   merges of S sessions' pools (S, D) and batches (S, B), stacked
+//   along a leading session axis, in ONE launch of the same kernel over
+//   a grid of (ceil(D / kMergeTile), S).  blockIdx.y picks the session
+//   and offsets every array by s·D or s·B; nothing inside a tile
+//   changes.  Bound: S times merge_pool_sorted's bytes.  It is the only
+//   entry point of the merge: a single merge is its S = 1 launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -269,6 +279,11 @@ __global__ void __launch_bounds__(kMergeThreads) merge_pool_sorted_kernel(
   __shared__ int s_src[kMergePad], s_dst[kMergePad], s_w[kMergePad],
       s_al[kMergePad];
   __shared__ int split[2];
+  // the session of a batched launch (0 for a single merge)
+  const size_t sp = (size_t)blockIdx.y * D, sf = (size_t)blockIdx.y * B;
+  ps += sp; pd += sp; pw += sp; pa += sp;
+  fs += sf; fd += sf; fw += sf; fa += sf;
+  os += sp; od += sp; ow += sp; oa += sp;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int j0 = blockIdx.x * kMergeTile;
@@ -416,14 +431,16 @@ extern "C" int repro_fused_spmv_rows(const void* ell_src,
   return (int)cudaGetLastError();
 }
 
-extern "C" int repro_merge_pool_sorted(
+extern "C" int repro_merge_pool_sorted_batched(
     const void* ps, const void* pd, const void* pw, const void* pa,
     const void* fs, const void* fd, const void* fw, const void* fa,
-    void* os, void* od, void* ow, void* oa, int D, int B, void* stream) {
+    void* os, void* od, void* ow, void* oa, int D, int B, int S,
+    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int grid = (D + kMergeTile - 1) / kMergeTile;
-  if (grid > 0) {
-    merge_pool_sorted_kernel<<<grid, kMergeThreads, 0, s>>>(
+  // x: the tiles of one merge, y: the session (a single merge is S = 1)
+  const dim3 tiles((D + kMergeTile - 1) / kMergeTile, S);
+  if (tiles.x > 0 && S > 0) {
+    merge_pool_sorted_kernel<<<tiles, kMergeThreads, 0, s>>>(
         (const int*)ps, (const int*)pd, (const int*)pw, (const uint8_t*)pa,
         (const int*)fs, (const int*)fd, (const int*)fw, (const uint8_t*)fa,
         (int*)os, (int*)od, (int*)ow, (uint8_t*)oa, D, B);

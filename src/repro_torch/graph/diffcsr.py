@@ -246,7 +246,7 @@ def update_csr_add(g: DynGraph, add_src, add_dst, add_w=None, mask=None, *,
                        (s_src[1:] != s_src[:-1]) | (s_dst[1:] != s_dst[:-1])])
     grp = cumsum32(first.to(INT)) - 1
     idx = torch.arange(B, dtype=INT, device=dev)
-    first_fresh = torch.full((B,), B, dtype=INT, device=dev).scatter_reduce_(
+    first_fresh = torch.full((B,), B, dtype=INT, device=dev).scatter_reduce(
         0, grp.to(torch.int64), torch.where(s_fresh, idx, B), "amin")
     s_fresh = s_fresh & (idx == first_fresh[grp])
 

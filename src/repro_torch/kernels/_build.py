@@ -66,8 +66,8 @@ _SIGNATURES = {
     # ell_src, row2dst, vals, row_sum, rows, counts, R, K, n, block, stream
     "repro_fused_spmv_rows": [P] * 6 + [I] * 4 + [P],
     # pool src/dst/w/alive, fresh src/dst/w/alive, out src/dst/w/alive,
-    # D, B, stream
-    "repro_merge_pool_sorted": [P] * 12 + [I] * 2 + [P],
+    # S sessions stacked: pools (S, D), batches (S, B); D, B, S, stream
+    "repro_merge_pool_sorted_batched": [P] * 12 + [I] * 3 + [P],
     # csr_relax.cu — ell_src, ell_w, vals, out, R, K, L (len(vals)), stream
     "repro_relax_rowmin": [P] * 4 + [I] * 3 + [P],
     # ell_src, vals, out, R, K, L, stream

@@ -104,9 +104,12 @@ def _pack(n, eother, egroup, ew, emat, ealive, k, row_tile) -> Ell:
     start = torch.searchsorted(sdst, sdst, side="left", out_int32=True)
     rank = torch.arange(E, dtype=INT, device=dev) - start
     # row base per vertex: exclusive cumsum of ceil(indeg/K)
-    # ids outside [0, n] are dropped, as by the reference's segment_sum
-    indeg = torch.bincount(in_range(sdst, n + 1),
-                           minlength=n + 2)[:n + 1].to(INT)
+    # ids outside [0, n] are dropped, as by the reference's segment_sum;
+    # an index_add (not bincount, which reads its input's max on the
+    # host) keeps the pack free of host syncs
+    indeg = torch.zeros((n + 2,), dtype=INT, device=dev).index_add_(
+        0, in_range(sdst, n + 1).to(torch.int64),
+        torch.ones_like(sdst, dtype=INT))[:n + 1]
     segs = -(-indeg // k)
     base = torch.cat([torch.zeros((1,), dtype=INT, device=dev),
                       cumsum32(segs[:n])])
@@ -161,13 +164,26 @@ def ell_apply_del(ell: Ell, g_prev: DynGraph, src, dst, mask) -> Ell:
     return patch_ell_tombstone(ell, lane, active)
 
 
-def ell_apply_add(ell: Ell, g_prev: DynGraph, g_new: DynGraph,
-                  src, dst, w, mask, slot_value, repack) -> Ell:
-    """An addition batch against the pack.  Revivals resolve against the
-    PRE-update graph; when fresh edges were appended to the diff pool the
-    lane positions moved and ``repack(g_new)`` rebuilds the pack.  The
-    reference's ``lax.cond`` is a branch here: one host sync per batch."""
-    if bool((g_new.d_offsets != g_prev.d_offsets).any()):
-        return repack(g_new)
+def pool_moved(g_prev: DynGraph, g_new: DynGraph) -> torch.Tensor:
+    """0-d bool: fresh edges were appended to the diff pool, so its lane
+    positions moved and the pack must be rebuilt."""
+    return (g_new.d_offsets != g_prev.d_offsets).any()
+
+
+def ell_revive(ell: Ell, g_prev: DynGraph, src, dst, w, mask,
+               slot_value) -> Ell:
+    """The revivals of an addition batch, resolved against the
+    PRE-update graph and patched in place."""
     lane, active = update_lanes(g_prev, src, dst, mask)
     return patch_ell_revive(ell, lane, slot_value, w, active)
+
+
+def ell_apply_add(ell: Ell, g_prev: DynGraph, g_new: DynGraph,
+                  src, dst, w, mask, slot_value, repack) -> Ell:
+    """An addition batch against the pack: ``repack(g_new)`` when the
+    pool moved, else the revivals patched in place.  The reference's
+    ``lax.cond`` is a branch here: one host sync per batch (the serving
+    pool reads a whole group's flags in one, ``serve/batch.py``)."""
+    if bool(pool_moved(g_prev, g_new)):
+        return repack(g_new)
+    return ell_revive(ell, g_prev, src, dst, w, mask, slot_value)

@@ -16,6 +16,13 @@ the pool wins ties.  The plain version runs one binary search per output
 slot; the kernel merges tiles of ``MERGE_TILE`` output slots, one a block,
 staged in shared memory.
 
+``merge_pool_sorted_batched`` — S such merges of S sessions stacked along
+a leading axis, in one launch of the same kernel (a grid row a session):
+the counterpart of the reference pool's ``vmap`` over the Pallas merge.
+``merge_pool_sorted_op`` is the solo merge as a ``torch.library`` custom
+op whose vmap rule calls the batched entry, so ``torch.func.vmap`` over
+an engine's update (``serve/batch.py``) launches it once for the group.
+
 The row kernels gather ``vals`` (n+1,) as a JAX gather does: a source id
 outside [0, n] (only an unchecked, admission="off" pool holds one) counts
 from the end or clamps (``tensors.take``).
@@ -34,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Tuple
 
 import torch
 
@@ -49,7 +57,7 @@ DEFAULT_BLOCK = 256     # rows per CUDA block of fused_relax_rows
 MERGE_TILE = 1024       # output slots per CUDA block of merge_pool_sorted
 
 LAUNCHES = {"fused_relax_rows": 0, "fused_spmv_rows": 0,
-            "merge_pool_sorted": 0}
+            "merge_pool_sorted": 0, "merge_pool_sorted_batched": 0}
 
 
 def reset_launches() -> None:
@@ -225,6 +233,41 @@ def merge_pool_sorted_plain(d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w,
             pick(f_alive[a_safe], d_alive[p_safe], False))
 
 
+def _launch_merge(name: str, pool, batch, dims: int):
+    """The merge kernel's one entry point, checked and counted under
+    ``name``: ``pool`` four (D,) or (S, D) tensors, ``batch`` four (B,)
+    or (S, B) (``dims`` 1 or 2; a single merge is S = 1).  Returns the
+    merged pools, shaped as ``pool``."""
+    d_src, d_dst, d_w, d_alive = pool
+    f_src, f_dst, f_w, f_alive = batch
+    if d_src.dim() != dims or f_src.dim() != dims:
+        raise ValueError(f"{name}: pools and batches must have {dims} "
+                         f"dimension(s)")
+    *lead, D = (int(x) for x in d_src.shape)
+    S, B = (lead[0] if lead else 1), int(f_src.shape[-1])
+    dev = cuda_device(name, d_src)
+    b = torch.bool
+    check(name, dev, d_src=(d_src, INT), d_dst=(d_dst, INT), d_w=(d_w, INT),
+          d_alive=(d_alive, b), f_src=(f_src, INT), f_dst=(f_dst, INT),
+          f_w=(f_w, INT), f_alive=(f_alive, b))
+    if any(t.shape != d_src.shape for t in pool) or \
+            any(t.shape != (*lead, B) for t in batch):
+        raise ValueError(f"{name}: pool arrays must be "
+                         f"{'(S, D)' if lead else '(D,)'} and batch arrays "
+                         f"{'(S, B)' if lead else '(B,)'}")
+    if D < 1 or B < 1 or S < 1:
+        raise ValueError(f"{name}: needs D, B, S >= 1, got {D}, {B}, {S}")
+    lib = _build.load()
+    out = [torch.empty(d_src.shape, dtype=INT, device=dev)
+           for _ in range(3)]
+    out.append(torch.empty(d_src.shape, dtype=b, device=dev))
+    err = lib.repro_merge_pool_sorted_batched(
+        *(ptr(t) for t in (*pool, *batch, *out)), D, B, S, _stream(dev))
+    raise_on(err, name)
+    LAUNCHES[name] += 1
+    return tuple(out)
+
+
 def merge_pool_sorted(d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w,
                       f_alive, *, n: int):
     """Merge the sorted diff pool with the sorted admitted batch.
@@ -232,31 +275,61 @@ def merge_pool_sorted(d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w,
     Both lists are sorted by (src, dst) with sentinel rows (src == n,
     dst == 0, w == 0, dead) at the end; returns the merged pool
     ``(d_src, d_dst, d_w, d_alive)`` with the same (D,) shape."""
-    D, B = int(d_src.shape[0]), int(f_src.shape[0])
     if d_src.device.type == "cpu":
         return merge_pool_sorted_plain(d_src, d_dst, d_w, d_alive, f_src,
                                        f_dst, f_w, f_alive, n)
-    dev = cuda_device("merge_pool_sorted", d_src)
-    b = torch.bool
-    check("merge_pool_sorted", dev, d_src=(d_src, INT), d_dst=(d_dst, INT),
-          d_w=(d_w, INT), d_alive=(d_alive, b), f_src=(f_src, INT),
-          f_dst=(f_dst, INT), f_w=(f_w, INT), f_alive=(f_alive, b))
-    if any(t.shape != (D,) for t in (d_dst, d_w, d_alive)) or \
-            any(t.shape != (B,) for t in (f_dst, f_w, f_alive)):
-        raise ValueError("merge_pool_sorted: pool arrays must be (D,) and "
-                         "batch arrays (B,)")
-    if D < 1 or B < 1:
-        raise ValueError(f"merge_pool_sorted: needs D, B >= 1, got {D}, {B}")
-    lib = _build.load()
-    out = [torch.empty((D,), dtype=INT, device=dev) for _ in range(3)]
-    out.append(torch.empty((D,), dtype=b, device=dev))
-    err = lib.repro_merge_pool_sorted(
-        *(ptr(t) for t in (d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w,
-                            f_alive, *out)),
-        D, B, _stream(dev))
-    raise_on(err, "merge_pool_sorted")
-    LAUNCHES["merge_pool_sorted"] += 1
-    return tuple(out)
+    return _launch_merge("merge_pool_sorted", (d_src, d_dst, d_w, d_alive),
+                         (f_src, f_dst, f_w, f_alive), 1)
+
+
+def merge_pool_sorted_batched_plain(d_src, d_dst, d_w, d_alive, f_src,
+                                    f_dst, f_w, f_alive, n: int):
+    """The plain version: the solo plain merge, session by session."""
+    outs = [merge_pool_sorted_plain(*(x[s] for x in (
+        d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w, f_alive)), n)
+        for s in range(d_src.shape[0])]
+    return tuple(torch.stack(col) for col in zip(*outs))
+
+
+def merge_pool_sorted_batched(d_src, d_dst, d_w, d_alive, f_src, f_dst,
+                              f_w, f_alive, *, n: int):
+    """S independent merges in one launch: pools (S, D), batches (S, B),
+    each session's lists sorted as for :func:`merge_pool_sorted`; returns
+    the merged pools, four (S, D) tensors."""
+    if d_src.device.type == "cpu":
+        return merge_pool_sorted_batched_plain(d_src, d_dst, d_w, d_alive,
+                                               f_src, f_dst, f_w, f_alive, n)
+    return _launch_merge("merge_pool_sorted_batched",
+                         (d_src, d_dst, d_w, d_alive),
+                         (f_src, f_dst, f_w, f_alive), 2)
+
+
+@torch.library.custom_op("repro_torch::merge_pool_sorted", mutates_args=())
+def merge_pool_sorted_op(d_src: torch.Tensor, d_dst: torch.Tensor,
+                         d_w: torch.Tensor, d_alive: torch.Tensor,
+                         f_src: torch.Tensor, f_dst: torch.Tensor,
+                         f_w: torch.Tensor, f_alive: torch.Tensor,
+                         n: int) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor, torch.Tensor]:
+    """:func:`merge_pool_sorted` as a custom op: called directly it
+    launches the solo merge; under ``torch.func.vmap`` its vmap rule
+    launches :func:`merge_pool_sorted_batched` once for the whole axis."""
+    return merge_pool_sorted(d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w,
+                             f_alive, n=n)
+
+
+@merge_pool_sorted_op.register_vmap
+def _merge_pool_sorted_vmap(info, in_dims, *args):
+    *tensors, n = args
+    size = info.batch_size
+
+    def stacked(x, dim):
+        x = x.expand(size, *x.shape) if dim is None else x.movedim(dim, 0)
+        return x.contiguous()
+
+    out = merge_pool_sorted_batched(
+        *(stacked(x, d) for x, d in zip(tensors, in_dims)), n=n)
+    return out, (0, 0, 0, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -9,14 +9,22 @@ recomputation; its attention goes through the flash kernel on the
 ``cuda`` backend), then ``--gen`` greedy tokens come from
 ``Model.serve_step`` over the cache, one token a step.  Weights and
 prompts come from one ``torch.Generator`` seeded with ``--seed`` on the
-model's device.  ``--graph`` (the reference's multi-tenant graph-session
-pool) waits for ROADMAP Queue 1 item 12.
+model's device.
+
+``--graph`` serves graph sessions instead (the reference's
+``serve_graphs``): one ``SessionPool`` of ``--tenants`` live graphs on
+an RMAT graph of scale ``--scale``, one ΔG batch per tenant per tick,
+drained through the batched mega-call (``--batch-mode``):
+
+PYTHONPATH=src python -m repro_torch.launch.serve --graph --tenants 8 \
+    --ticks 4 --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -70,9 +78,10 @@ def decode(model: Model, logits, caches, start: int, gen: int):
 
 def serve(args) -> dict:
     if args.graph:
-        raise NotImplementedError(
-            "--graph (the graph-session pool) waits for ROADMAP Queue 1 "
-            "item 12")
+        return serve_graphs(args)
+    if args.backend not in BACKENDS:
+        raise ValueError(f"--backend {args.backend!r} serves graphs only; "
+                         f"the LM backends are {BACKENDS}")
     model, prompts = build(args)
     dev, cfg = model.device, model.cfg
     B, P, G = args.batch, args.prompt_len, args.gen
@@ -104,6 +113,62 @@ def serve(args) -> dict:
             "decode_s": t_decode}
 
 
+GRAPH_BACKENDS = ("cuda", "cuda_chained", "torch")
+
+
+def serve_graphs(args) -> dict:
+    """The graph-session serving loop: one pool, ``--tenants`` live
+    graphs, one ΔG batch per tenant per tick, drained through the
+    batched mega-call.  Prints the per-tick p50/p99 (the first tick,
+    which builds the kernels, is left out when there are more) and the
+    pool's counters; returns the stats snapshot."""
+    from repro_torch.core import registry
+    from repro_torch.graph.csr import build_csr, rmat_graph
+    from repro_torch.graph.updates import random_updates
+    from repro_torch.serve import SessionPool
+
+    if args.backend not in GRAPH_BACKENDS:
+        raise ValueError(f"--graph --backend must be one of "
+                         f"{GRAPH_BACKENDS}, got {args.backend!r}")
+    dev = resolve_device(args.device)
+    n, edges, w = rmat_graph(args.scale, 8, seed=args.seed)
+    keep = edges[:, 0] != edges[:, 1]
+    csr = build_csr(n, edges[keep], w[keep], device=dev)
+    pool = SessionPool(backend=args.backend, batch_mode=args.batch_mode,
+                       max_pending=4 * args.tenants, device=dev)
+    streams = [random_updates(csr, 30, seed=args.seed + 1 + t)
+               for t in range(args.tenants)]
+    for t in range(args.tenants):
+        pool.bind(f"t{t}", csr)
+    print(f"[serve] graph pool: backend={args.backend} "
+          f"mode={args.batch_mode} tenants={args.tenants} "
+          f"n={csr.n} edges={csr.num_edges} device={dev}")
+
+    ticks = []
+    for i in range(args.ticks):
+        reqs = [(f"t{t}",
+                 streams[t].batch(i % streams[t].num_batches(args.batch_size),
+                                  args.batch_size, device=dev))
+                for t in range(args.tenants)]
+        _sync(dev)
+        t0 = time.perf_counter()
+        pool.apply_many(reqs)
+        _sync(dev)
+        ticks.append(time.perf_counter() - t0)
+    warm = np.asarray(ticks[1:]) if len(ticks) > 1 else np.asarray(ticks)
+    p50, p99 = np.percentile(warm, [50, 99])
+    stats = pool.stats()
+    print(f"[serve] tick p50 {p50 * 1e3:.2f} ms  p99 {p99 * 1e3:.2f} ms  "
+          f"({p50 / args.tenants * 1e6:.0f} us/session)")
+    print(f"[serve] mega_calls={stats['mega_calls']} "
+          f"mega_sessions={stats['mega_sessions']} "
+          f"sequential_fallbacks={stats['sequential_fallbacks']} "
+          f"applied={stats['applied']}")
+    registry.clear_shared_engines()
+    return {"p50_s": float(p50), "p99_s": float(p99), "stats": stats,
+            "ticks_s": ticks}
+
+
 def parser():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="starcoder2-7b", choices=list(REGISTRY))
@@ -113,12 +178,23 @@ def parser():
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--f32", action="store_true")
-    ap.add_argument("--backend", default="cuda", choices=BACKENDS)
+    ap.add_argument("--backend", default="cuda",
+                    choices=sorted(set(BACKENDS) | set(GRAPH_BACKENDS)),
+                    help="LM: cuda | torch; --graph: cuda | cuda_chained "
+                         "| torch")
     ap.add_argument("--device", default=None,
                     help="default: the card (raises without one); 'cpu' "
                          "runs the plain versions on the CPU")
+    # --graph mode: a multi-tenant graph-session pool instead of LM decode
     ap.add_argument("--graph", action="store_true",
-                    help="serve a pool of graph sessions (not ported yet)")
+                    help="serve a pool of graph sessions instead of decode")
+    ap.add_argument("--batch-mode", default="vmap",
+                    choices=("vmap", "scan", "off"))
+    ap.add_argument("--tenants", type=int, default=16)
+    ap.add_argument("--ticks", type=int, default=12)
+    ap.add_argument("--batch-size", type=int, default=16)
+    ap.add_argument("--scale", type=int, default=9,
+                    help="rmat graph scale (log2 nodes)")
     return ap
 
 

@@ -1,1 +1,2 @@
-"""Admission guard, typed faults and session health."""
+"""The fault runtime: the admission guard, typed faults, session health,
+the divergence watchdog, backend failover and the chaos seams."""

@@ -47,19 +47,28 @@ def set_drop(buf: torch.Tensor, idx: torch.Tensor, vals,
     With ``last_wins`` a duplicated index takes the value of its LAST lane
     (what XLA's scatter does on the CPU); the card's ``index_put_`` picks
     no fixed winner, so the losing lanes are redirected to the dropped
-    slot first.  Callers whose duplicate lanes carry equal values leave it
-    off."""
+    slot first (a sort of the lanes, not a pass over ``buf``).  Callers
+    whose duplicate lanes carry equal values leave it off."""
     L = buf.shape[0]
     idx = idx.to(torch.int64)
     idx = torch.where((idx >= -L) & (idx < L), torch.remainder(idx, L), L)
     if last_wins and idx.numel():
-        lanes = torch.arange(idx.shape[0], device=idx.device)
-        win = torch.full((L + 1,), -1, dtype=torch.int64, device=idx.device)
-        win.scatter_reduce_(0, idx, lanes, "amax")
-        idx = torch.where(win[idx] == lanes, idx, L)
+        # lanes sorted stably by index: an index's last lane ends its run
+        idx, order = torch.sort(idx, stable=True)
+        last = torch.cat([idx[1:] != idx[:-1],
+                          torch.ones((1,), dtype=torch.bool,
+                                     device=idx.device)])
+        idx = torch.where(last, idx, L)
+        if isinstance(vals, torch.Tensor) and vals.dim():
+            vals = vals[order]
     out = torch.cat([buf, buf.new_zeros(1)])
-    out[idx] = vals
-    return out[:L]
+    # out of place, so that ``torch.func.vmap`` can batch a scatter of
+    # batched lanes into a fresh buffer (serve/batch.py); a Python scalar
+    # is filled in, never copied to the device (a copy from host memory
+    # is a host sync)
+    if isinstance(vals, torch.Tensor):
+        return out.index_put((idx,), vals)[:L]
+    return out.index_fill(0, idx, vals)[:L]
 
 
 def _segment(vals, seg, num, reduce: str, fill):

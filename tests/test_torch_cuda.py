@@ -165,8 +165,9 @@ def test_cuda_backend_matches_cpu_run(dev, seed, batch, capacity):
         out[str(where)] = (props, sess.handle, dict(TK.LAUNCHES))
     (p_cpu, h_cpu, l_cpu), (p_gpu, h_gpu, l_gpu) = out.values()
     assert l_cpu == {"fused_relax_rows": 0, "fused_spmv_rows": 0,
-                     "merge_pool_sorted": 0}
+                     "merge_pool_sorted": 0, "merge_pool_sorted_batched": 0}
     assert l_gpu["fused_relax_rows"] > 0 and l_gpu["merge_pool_sorted"] > 0
+    assert l_gpu["merge_pool_sorted_batched"] == 0
     for k in ("dist", "parent", "modified"):
         assert torch.equal(p_cpu[k], p_gpu[k].cpu()), k
     for part in ("g", "ell"):
@@ -779,3 +780,130 @@ def test_dsl_save_restore_on_card(dev, tmp_path):
         for f, x in vars(a).items():
             if isinstance(x, torch.Tensor):
                 assert torch.equal(x, getattr(b, f)), (part_, f)
+
+
+# ---------------------------------------------------------------------------
+# slice 9: the batched merge, failover and the pool on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S", [1, 3, 32])
+@pytest.mark.parametrize("i", [0, 3, 5, 8, 12, 13],
+                         ids=[chip_smoke.MERGE_CASES[i][0]
+                              for i in (0, 3, 5, 8, 12, 13)])
+def test_batched_merge_kernel_on_merge_cases(dev, i, S):
+    """MERGE_CASES stacked S sessions wide: one launch equals its plain
+    version and S solo launches, bit for bit."""
+    _, D, B, pool_used, batch_used, ties, where = chip_smoke.MERGE_CASES[i]
+    sessions = [chip_smoke.merge_case(np, 1000 * i + s, D, B, pool_used,
+                                      batch_used, ties, where)
+                for s in range(S)]
+    st = [torch.from_numpy(np.stack(col)).to(dev) for col in zip(*sessions)]
+    n = chip_smoke.MERGE_N
+    before = TK.LAUNCHES["merge_pool_sorted_batched"]
+    with chip_smoke.junk_outputs(torch):
+        got = TK.merge_pool_sorted_batched(*st, n=n)
+    assert TK.LAUNCHES["merge_pool_sorted_batched"] == before + 1
+    want = TK.merge_pool_sorted_batched_plain(*st, n)
+    solo = [TK.merge_pool_sorted(*(x[s] for x in st), n=n)
+            for s in range(S)]
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), k
+        assert torch.equal(g, torch.stack([o[k] for o in solo])), k
+
+
+def test_batched_merge_refuses_bad_inputs(dev):
+    st = [torch.from_numpy(np.stack(col)).to(dev) for col in zip(
+        *(chip_smoke.merge_case(np, s, 100, 40, 60, 40, 0.25, None)
+          for s in range(2)))]
+    with pytest.raises(ValueError):
+        TK.merge_pool_sorted_batched(*st[:4], *(x[:1] for x in st[4:]),
+                                     n=chip_smoke.MERGE_N)
+    with pytest.raises(TypeError):
+        TK.merge_pool_sorted_batched(st[0].long(), *st[1:],
+                                     n=chip_smoke.MERGE_N)
+
+
+def test_failover_hop_on_card(dev):
+    """A fault planted at cuda's update_add launch moves an SSSP session
+    to cuda_chained and then torch on the card; dist and the alive edges
+    equal an undisturbed cuda run, and the re-probe brings it back."""
+    from repro_torch.runtime import faults
+    n, edges, w = random_graph(7, 300, 2400)
+    csr = repro_torch.build_csr(n, edges, w, device=dev)
+    stream = repro_torch.random_updates(csr, percent=10, seed=2)
+    ref = repro_torch.bind_graph(csr, backend="cuda", capacity=1024,
+                                 device=dev)
+    want = ref.run_stream(stream, 16, sssp.stream_step,
+                          ref.call(sssp.static_sssp, 0))
+    sess = repro_torch.bind_graph(csr, backend="cuda", capacity=1024,
+                                  failover=True, device=dev)
+    sess._failover.probe_base_s = 0.0
+    props = sess.call(sssp.static_sssp, 0)
+    with faults.inject("kernel_launch", times=None, after=2,
+                       match=lambda c: c.get("engine") == "cuda"
+                       and c.get("op") == "update_add"):
+        props = sess.run_stream(stream, 16, sssp.stream_step, props)
+    assert sess.backend_name == "torch" and sess.health.failovers == 2
+    assert sess.engine.device == dev
+    for k in ("dist", "parent"):
+        assert torch.equal(props[k], want[k]), k
+    for f in ("src", "dst", "w", "alive", "d_src", "d_dst", "d_w",
+              "d_alive"):
+        assert torch.equal(getattr(sess.handle, f), getattr(ref.handle.g, f))
+    TK.reset_launches()
+    extra = repro_torch.random_updates(csr, percent=1, seed=3)
+    props = sess.run_stream(extra, 16, sssp.stream_step, props)
+    want = ref.run_stream(extra, 16, sssp.stream_step, want)
+    assert sess.backend_name == "cuda" and not sess.health.degraded
+    assert TK.LAUNCHES["fused_relax_rows"] > 0
+    for k in ("dist", "parent"):
+        assert torch.equal(props[k], want[k]), k
+
+
+def test_pool_vmap_launches_the_batched_merge_once_a_round(dev):
+    """Five structural tenants in vmap mode: one batched merge launch a
+    round, no solo merge, the tenants equal solo cuda sessions."""
+    from repro_torch.core import registry
+    from repro_torch.serve import SessionPool
+    n, edges, w = random_graph(11, 256, 2000)
+    csr = repro_torch.build_csr(n, edges, w, device=dev)
+    streams = [repro_torch.random_updates(csr, percent=20, seed=t)
+               for t in range(5)]
+    registry.clear_shared_engines()
+    pool = SessionPool(backend="cuda", batch_mode="vmap", device=dev)
+    for t in range(5):
+        pool.bind(f"t{t}", csr, capacity=256)
+    TK.reset_launches()
+    for i in range(2):
+        pool.apply_many([(f"t{t}", streams[t].batch(i, 32, device=dev))
+                         for t in range(5)])
+    assert TK.LAUNCHES["merge_pool_sorted_batched"] == 2
+    assert TK.LAUNCHES["merge_pool_sorted"] == 0
+    for t in range(5):
+        solo = repro_torch.bind_graph(csr, backend="cuda", capacity=256,
+                                      device=dev)
+        for i in range(2):
+            solo.apply(streams[t].batch(i, 32, device=dev))
+        got = pool.session(f"t{t}").handle
+        for part in ("g", "ell"):
+            a, b = getattr(got, part), getattr(solo.handle, part)
+            for f, x in vars(a).items():
+                if isinstance(x, torch.Tensor):
+                    assert torch.equal(x, getattr(b, f)), (t, part, f)
+    registry.clear_shared_engines()
+
+
+def test_set_drop_last_lane_wins_on_card(dev):
+    """``tensors.set_drop(last_wins=True)`` on the card, where
+    ``index_put_`` picks no fixed winner among duplicate lanes: equal to
+    the CPU's sequential scatter at the main path's lane count, with every
+    index written by many lanes."""
+    from repro_torch.tensors import set_drop
+    rng = np.random.default_rng(0)
+    L, W = 4096, 65536
+    buf = torch.from_numpy(rng.integers(0, 9, L).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(-L, 2 * L, W).astype(np.int32))
+    vals = torch.from_numpy(rng.integers(0, 1 << 30, W).astype(np.int32))
+    want = set_drop(buf, idx, vals, last_wins=True)
+    got = set_drop(buf.to(dev), idx.to(dev), vals.to(dev), last_wins=True)
+    assert torch.equal(got.cpu(), want)

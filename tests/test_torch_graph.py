@@ -202,6 +202,37 @@ def test_duplicate_revive_keeps_last_lane():
     assert 9 in ell_port.ell_w.reshape(-1).tolist()
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_set_drop_matches_jax_scatter_drop(seed):
+    """``tensors.set_drop`` against JAX's ``.at[idx].set(mode="drop")`` on
+    the CPU (the reference's scatter: the last of duplicate lanes wins,
+    indices outside [-L, L) drop): many duplicates, tensor and scalar
+    values, and mapped by ``torch.func.vmap`` over batched lanes into a
+    fresh buffer, as the serving pool's mega-call runs it."""
+    from repro_torch.tensors import set_drop
+    rng = np.random.default_rng(seed)
+    S, L, W = 3, int(rng.integers(1, 40)), int(rng.integers(1, 90))
+    buf = rng.integers(0, 9, (S, L)).astype(np.int32)
+    idx = rng.integers(-2 * L, 2 * L, (S, W)).astype(np.int32)
+    vals = rng.integers(0, 1000, (S, W)).astype(np.int32)
+    want = [np.asarray(jnp.asarray(buf[s]).at[idx[s]].set(vals[s],
+                                                         mode="drop"))
+            for s in range(S)]
+    for s in range(S):
+        got = set_drop(torch.from_numpy(buf[s]), torch.from_numpy(idx[s]),
+                       torch.from_numpy(vals[s]), last_wins=True)
+        assert np.array_equal(got.numpy(), want[s])
+        got = set_drop(torch.from_numpy(buf[s]), torch.from_numpy(idx[s]), 7)
+        assert np.array_equal(got.numpy(), np.asarray(
+            jnp.asarray(buf[s]).at[idx[s]].set(7, mode="drop")))
+    mapped = torch.func.vmap(lambda i, v: set_drop(
+        torch.zeros((L,), dtype=torch.int32), i, v, last_wins=True))(
+        torch.from_numpy(idx), torch.from_numpy(vals))
+    for s in range(S):
+        assert np.array_equal(mapped[s].numpy(), np.asarray(
+            jnp.zeros((L,), jnp.int32).at[idx[s]].set(vals[s], mode="drop")))
+
+
 # ---------------------------------------------------------------------------
 # ELL pack and in-place patches, slot for slot
 # ---------------------------------------------------------------------------
@@ -300,6 +331,10 @@ def test_entry_points_refuse_cpu_without_asking(monkeypatch):
                                  dels=np.zeros((0, 2), np.int32)).batch(0, 1)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         repro_torch.make_engine("cuda")
-    with pytest.raises(NotImplementedError):
-        repro_torch.bind_graph(csr, device="cpu", failover=True)
+    # failover never trades the card for the CPU: a missing card is no
+    # backend fault
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.bind_graph(csr, failover=True)
+    assert repro_torch.bind_graph(csr, device="cpu",
+                                  failover=True).backend_name == "cuda"
     assert repro_torch.bind_graph(csr, device="cpu").device.type == "cpu"

@@ -347,12 +347,14 @@ def test_cpu_wrappers_count_no_launch():
     TK.fused_spmv_rows(port.ell_src, port.row2dst, fv)
     arrays = [torch.from_numpy(a) for a in merge_inputs(0)]
     TK.merge_pool_sorted(*arrays, n=40)
+    TK.merge_pool_sorted_batched(*[a[None] for a in arrays], n=40)
     TC.relax_rowmin(port.ell_src, port.ell_w, v)
     TC.spmv_rowsum(port.ell_src, fv)
     TC.relax_rowargmin(port.ell_src, port.ell_w, v, port.row2dst, n=64)
     tops.vertex_spmv(port, fv)
     assert TK.LAUNCHES == {"fused_relax_rows": 0, "fused_spmv_rows": 0,
-                           "merge_pool_sorted": 0}
+                           "merge_pool_sorted": 0,
+                           "merge_pool_sorted_batched": 0}
     assert TC.LAUNCHES == {"relax_rowmin": 0, "spmv_rowsum": 0,
                            "relax_rowargmin": 0}
     assert TS.LAUNCHES == {"segment_sum_sorted": 0}

@@ -178,6 +178,11 @@ def test_serve_needs_a_card_or_cpu_and_no_graph_mode():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tserve.serve(args)
-    args = tserve.parser().parse_args(["--graph", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tserve.serve(args)
+    # --graph serves the graph-session pool now (test_torch_serve.py); it
+    # too needs a card or device="cpu"
+    small = ["--graph", "--tenants", "2", "--ticks", "2", "--scale", "6"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tserve.serve(tserve.parser().parse_args(small))
+    args = tserve.parser().parse_args(small + ["--device", "cpu"])
+    assert tserve.serve(args)["stats"]["applied"] == 4

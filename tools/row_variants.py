@@ -55,7 +55,7 @@ CSRC = ROOT / "src" / "repro_torch" / "csrc"
 # each built source and the entry points it holds, and the header both
 # include
 LIBS = {"repair.cu": ("repro_fused_relax_rows", "repro_fused_spmv_rows",
-                      "repro_merge_pool_sorted"),
+                      "repro_merge_pool_sorted_batched"),
         "csr_relax.cu": ("repro_relax_rowmin", "repro_spmv_rowsum",
                          "repro_relax_rowargmin")}
 SOURCES = (*LIBS, "ell_row.cuh")
@@ -270,7 +270,10 @@ BLOCK_SPLIT = ("""  if (warp < 2) {
   }
   __syncthreads();
 """)
-MERGE_LAUNCH = "    merge_pool_sorted_kernel<<<grid, kMergeThreads, 0, s>>>("
+# the merge's one launch (a single merge is its S = 1 launch; the tool
+# calls the single merge, so the earlier kernel's copy, which reads no
+# session index, stands for it)
+MERGE_LAUNCH = "    merge_pool_sorted_kernel<<<tiles, kMergeThreads, 0, s>>>("
 BASE = "const long long base = (long long)blockIdx.x * blockDim.x;"
 ROW = "const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;"
 # name: (substitutions, the kernels timed against the copy)
