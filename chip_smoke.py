@@ -75,9 +75,31 @@ Phases (any failure exits non-zero):
       ``off`` ``merge_pool_sorted`` once a tenant a tick; a mega-call
       makes at most 2 host syncs.  Tick p50/p99 and µs a session are
       printed per mode.
-   The main paths (2a-2c, step 4) must end on their own backend with no
-   failover.  The ``torch`` backend's runs (step 4) launch no kernel but
-   the float segment sum.  Each window of 2d-2f prints its wall time, launches
+   g. The fused stream executor and the frontier engine, after 2f.  Every
+      path of 2a-2c so far ran ``run_stream`` fused: a segment of up to 8
+      batches, run uncaptured at its first use (so each of those one-segment
+      streams), one captured CUDA graph from its second, its loops
+      conditional nodes.  Here SSSP and PageRank on ``cuda`` and
+      ``cuda_chained`` (2a's graph and stream) and TC on ``cuda`` (2d's)
+      run from one start state through the per-batch driver
+      (``Engine.run_stream``), then through the fused executor three
+      times (uncaptured; capture and replay; replay alone): carries,
+      every DynGraph array and the ELL pack equal bit for bit, every
+      kernel's launches equal in the four runs, host syncs counted (a
+      replayed SSSP segment at most ``SSSP_REPLAY_SYNCS``; it must launch
+      ``graph_cond_set``), capture time, wall time and peak memory
+      printed; on SSSP ``cuda`` a replay continuing from the last one's
+      handle equals the per-batch driver's continuation, and the device's
+      busy share of the per-batch run and of a replay (torch.profiler).
+      Then SSSP and PageRank on ``frontier`` through ``bind_graph``
+      (static runs with sparse steps and dense chunks counted, streams
+      fused): dist, parent and pr equal the ``torch`` backend's of step 4
+      bit for bit.
+   The main paths (2a-2c, step 4, 2g) must end on their own backend with
+   no failover.  The ``torch`` backend's runs (step 4) stream through the
+   per-batch driver (``Engine.run_stream``), so the reference shares no
+   captured graph with the code it checks, and launch no kernel but the
+   float segment sum.  Each window of 2d-2f prints its wall time, launches
    and peak memory; each kernel's JSON record lists its launches by
    window (``launches_by_path``; the LM prefill and decode are windows
    too).
@@ -97,7 +119,12 @@ Phases (any failure exits non-zero):
    timed.  ``merge_pool_sorted_batched`` (phase 2f) runs ``MERGE_CASES``
    stacked 1, 3 and 32 sessions wide against its plain version and as
    many solo launches, bit for bit, and is timed at the pool's shape
-   beside the solo launches and its bound.
+   beside the solo launches and its bound.  ``graph_cond_set`` (the
+   conditional nodes' set kernel, launched by every captured segment:
+   2g's replayed SSSP segment must launch it, and gives its count) takes,
+   in a captured segment of ``COND_NODES`` branches, the branch its plain
+   version (a host read) names, and is timed as one set-and-branch
+   against one host read.
 4. Correctness of the runs: SSSP ``dist``, ``parent`` and every DynGraph
    array equal the ``torch`` backend's, ``cuda_chained``'s dist and parent
    equal ``cuda``'s, and dist equals scipy's Dijkstra over the
@@ -558,27 +585,33 @@ def warp_loaded(mod, rec, ell_src, ell_w=None) -> None:
 
 
 class Launches:
-    """Every kernel module's launch counts, reset and read together."""
+    """Every kernel module's launch counts, reset and read together: the
+    tables each module registers in ``_build.LAUNCH_TABLES``, which the
+    captured segments' tallies read too."""
 
-    def __init__(self, *mods):
-        self.mods = mods
+    def __init__(self, build):
+        self.build = build
 
     def reset(self):
-        for m in self.mods:
-            m.reset_launches()
+        self.build.reset_all_launches()
 
     def read(self) -> dict:
-        out = {}
-        for m in self.mods:
-            out.update(m.LAUNCHES)
-        return out
+        return self.build.all_launches()
 
 
-def run_path(repro_torch, csr, stream, backend, static, step, clock):
+def run_path(repro_torch, csr, stream, backend, static, step, clock,
+             per_batch_driver=False):
     """Bind, prepare, the static run, then the stream; returns the
-    session, the final props and the three wall times."""
+    session, the final props and the three wall times.  With
+    ``per_batch_driver`` the session's stream goes through
+    ``Engine.run_stream``, the per-batch baseline, instead of the fused
+    executor (a reference independent of the captured graphs)."""
     sess = repro_torch.bind_graph(csr, backend=backend,
                                   capacity=2 * stream.num_adds, device=DEV)
+    if per_batch_driver:
+        from repro_torch.core.engine import Engine
+        eng = sess.engine
+        eng.run_stream = functools.partial(Engine.run_stream, eng)
     with clock() as t_prep:
         sess.handle                             # prepare: pool + ELL pack
     with clock() as t_static:
@@ -589,14 +622,15 @@ def run_path(repro_torch, csr, stream, backend, static, step, clock):
 
 
 def drive(torch, repro_torch, counts, csr, stream, tag, backend, static,
-          step, clock, launched=(), silent=(), per_batch=None):
+          step, clock, launched=(), silent=(), per_batch=None,
+          per_batch_driver=False):
     """One path in a window of its own: every launch count and the peak
     memory reset just before it, the counts read just after; prints its
     times and launches and checks which kernels it ran."""
     torch.cuda.reset_peak_memory_stats()
     counts.reset()
     sess, props, times = run_path(repro_torch, csr, stream, backend, static,
-                                  step, clock)
+                                  step, clock, per_batch_driver)
     launches = counts.read()
     if sess.backend_name != backend or sess.health.failovers:
         raise AssertionError(f"[{tag}] the session left {backend}: now on "
@@ -1138,6 +1172,7 @@ def tc_phase(torch, np, repro_torch, counts, args, silent) -> dict:
         f"{stream.num_adds} add lanes, {stream.num_dels} del lanes, {nb} "
         f"batches of {BATCH} | generation {time.perf_counter() - t0:.2f} s")
     cap = 2 * stream.num_adds
+    TC_DATA.update(csr=csr, stream=stream)
 
     def bind(backend):
         sess = repro_torch.bind_graph(csr, backend=backend, capacity=cap,
@@ -1852,6 +1887,238 @@ def pool_phase(torch, np, repro_torch, counts, args, FK) -> dict:
     return rec
 
 
+COND_NODES = 256            # branches in check_cond's captured segment
+
+
+def check_cond(torch, args, flush, GC) -> dict:
+    """The conditional nodes' set kernel (``csrc/graph_cond.cu``) against
+    its plain version, the host read of an eager branch: a captured segment
+    of ``COND_NODES`` branches on seeded device flags must take, at every
+    replay, the branch each flag names.  Timed: one set-and-branch (the
+    replay over its ``2 * COND_NODES`` IF nodes, each a set launch, the
+    node and a one-add body) against one host read.  Its ``launches`` are
+    filled in by phase 2g, the path that launches it."""
+    from repro_torch.core import device_loop as DL
+    gen = torch.Generator().manual_seed(5)
+    preds = (torch.rand(COND_NODES, generator=gen) > 0.5).to(DEV)
+    zero = torch.zeros((), dtype=torch.int32, device=DEV)
+
+    def body(h, c, b):
+        outs = [DL.cond(h["p"][i], lambda o: o + 1, lambda o: o - 1,
+                        h["z"][i:i + 1]) for i in range(COND_NODES)]
+        return {**h, "z": torch.cat(outs)}, c
+
+    seg = DL.SegmentGraph(body, lambda h: torch.stack([zero] * 3), DEV)
+    h = {"p": preds, "z": torch.zeros(COND_NODES, dtype=torch.int32,
+                                      device=DEV)}
+    seg(h, zero, zero)                  # a segment's first use: uncaptured
+    got = seg(h, zero, zero)[0]["z"]    # captured and replayed
+    want = torch.tensor([1 if GC.set_condition_plain(p) else -1
+                         for p in preds.cpu()], dtype=torch.int32,
+                        device=DEV)
+    try:
+        err = max_abs_err(torch, (got,), (want,))
+    except AssertionError as exc:
+        raise AssertionError(f"graph_cond_set: {exc}") from None
+    nodes = 2 * COND_NODES
+    b_ms, b_by = bound(1, 0)
+    rec = dict(name="graph_cond_set", route="cuda",
+               source="src/repro_torch/csrc/graph_cond.cu",
+               replaces="src/repro/core/engine.py:491 (lax.while_loop and "
+                        "lax.cond predicates; no Pallas kernel)",
+               launches=None, max_abs_err=err,
+               ms=median_ms(torch, seg.graph.replay, args.reps, flush)
+               / nodes,
+               plain_ms=median_ms(torch, lambda: GC.set_condition_plain(
+                   preds[0]), args.reps, flush),
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               shape={"nodes": nodes})
+    log(f"[kernel] graph_cond_set: {rec['ms']:.4f} ms a set-and-branch "
+        f"(plain: a host read, {rec['plain_ms']:.4f} ms; bound "
+        f"{b_ms:.2e} by {b_by}) every branch as its flag")
+    return rec
+
+
+# -- phase 2g: the fused stream executor and the frontier engine --------------
+SSSP_REPLAY_SYNCS = 3          # host syncs allowed a replayed SSSP segment
+TC_DATA = {}                   # phase 2d's graph and stream, for 2g
+
+
+def same_tree(torch, a, b, tag) -> None:
+    """Two carries (a dict of tensors or one tensor) equal bit for bit."""
+    a = a if isinstance(a, dict) else {"count": a}
+    b = b if isinstance(b, dict) else {"count": b}
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            raise AssertionError(f"[{tag}] {k} differs")
+
+
+def same_handle(torch, eng, a, b, tag) -> None:
+    """Every DynGraph array (and the ELL pack's, where the handle has one)
+    equal bit for bit."""
+    ga, gb = eng.handle_graph(a), eng.handle_graph(b)
+    for f in DYN_FIELDS:
+        if not torch.equal(getattr(ga, f), getattr(gb, f)):
+            raise AssertionError(f"[{tag}] g.{f} differs")
+    if hasattr(a, "ell"):
+        for f in ("ell_src", "ell_w", "row2dst", "lane2slot", "offsets"):
+            if not torch.equal(getattr(a.ell, f), getattr(b.ell, f)):
+                raise AssertionError(f"[{tag}] ell.{f} differs")
+
+
+def fused_vs_eager(torch, counts, tag, eng, h0, stream, step, carry0,
+                   busy=False) -> dict:
+    """The per-batch baseline (``Engine.run_stream``), then the fused
+    executor from the same start three times: its first call runs the
+    segment uncaptured, its second captures the segment's graph and
+    replays it, the third only replays.  Results, handles and launches
+    must be equal; returns the readings."""
+    from repro_torch.core.engine import Engine
+    # the captured runs also launch the conditional nodes' set kernel,
+    # which the per-batch driver does not have
+    kept = lambda d: {k: v for k, v in d.items()
+                      if v and k != "graph_cond_set"}
+    out = {}
+
+    def timed(name, fn):
+        torch.cuda.reset_peak_memory_stats()
+        counts.reset()
+        with Timer(torch) as t:
+            res, syncs = count_syncs(torch, fn)
+        out[name] = {"s": t.s, "syncs": syncs, "launches": counts.read(),
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        WINDOWS[f"2g {tag} {name}"] = out[name]["launches"]
+        return res
+
+    he, ce = timed("eager", lambda: Engine.run_stream(
+        eng, h0, stream, BATCH, step, carry0))
+    for name in ("first", "capture", "replay"):
+        hf, cf = timed(name, lambda: eng.run_stream(
+            h0, stream, BATCH, step, carry0))
+        same_tree(torch, ce, cf, f"{tag} {name}")
+        same_handle(torch, eng, he, hf, f"{tag} {name}")
+        runs = [r for r in eng._stream_cache.values() if r.graph is not None]
+        if bool(runs) != (name != "first"):
+            raise AssertionError(f"[{tag}] {name} call: {len(runs)} "
+                                 f"captured segments")
+    want = kept(out["eager"]["launches"])
+    for name in ("first", "capture", "replay"):
+        if kept(out[name]["launches"]) != want:
+            raise AssertionError(
+                f"[{tag}] {name} launches {kept(out[name]['launches'])} "
+                f"!= the per-batch driver's {want}")
+    if out["first"]["launches"]["graph_cond_set"]:
+        raise AssertionError(f"[{tag}] the uncaptured run launched "
+                             f"graph_cond_set")
+    if busy:
+        # a replay that continues from the last one's handle, against the
+        # per-batch driver continuing from its own
+        with Timer(torch) as t:
+            hc, cc = eng.run_stream(hf, stream, BATCH, step, cf)
+        out["continued_s"] = t.s
+        he, ce = Engine.run_stream(eng, he, stream, BATCH, step, ce)
+        same_tree(torch, ce, cc, f"{tag} continued")
+        same_handle(torch, eng, he, hc, f"{tag} continued")
+        del hc, cc
+        profile_window(torch, f"2g {tag} per-batch driver",
+                       lambda: Engine.run_stream(eng, h0, stream, BATCH,
+                                                 step, carry0))
+        profile_window(torch, f"2g {tag} fused replay",
+                       lambda: eng.run_stream(h0, stream, BATCH, step,
+                                              carry0))
+    out["capture_s"] = sum(r.capture_s for r in runs)
+    out["nodes"] = sum(r.cap.nodes for r in runs)
+    out["segments"] = len(runs)
+    out["trips"] = sum(sum(r.last_trips) for r in runs)
+    out["copy_bytes"] = max(r.copy_bytes for r in runs)
+    if busy:
+        log(f"[2g {tag}] a replay continuing from the last one's handle "
+            f"{out['continued_s']:.3f} s, equal to the per-batch driver's "
+            f"continuation bit for bit; each replay copies "
+            f"{out['copy_bytes']} bytes of handle in and as many out (the "
+            f"leaves a segment writes)")
+    e, f, c, r = (out[k] for k in ("eager", "first", "capture", "replay"))
+    log(f"[2g {tag}] per-batch {e['s']:.3f} s, {e['syncs']} host syncs, "
+        f"peak {e['peak_gib']:.2f} GiB | fused: first call (uncaptured) "
+        f"{f['s']:.3f} s, {f['syncs']} syncs | second call {c['s']:.3f} s "
+        f"({out['capture_s']:.3f} s capture of {out['segments']} "
+        f"segment(s), {out['nodes']} conditional nodes), {c['syncs']} "
+        f"syncs, peak {c['peak_gib']:.2f} GiB | replay {r['s']:.3f} s, "
+        f"{r['syncs']} syncs, {out['trips']} body runs, "
+        f"{r['launches']['graph_cond_set']} graph_cond_set | launches "
+        f"{want} in all four | equal bit for bit")
+    del he, hf
+    eng._stream_cache.clear()
+    return out
+
+
+def fused_phase(torch, repro_torch, counts, csr, stream, paths,
+                sssp_ref, pr_torch, cond_rec) -> dict:
+    """Phase 2g: the fused stream executor against the per-batch driver
+    on ``cuda`` and ``cuda_chained`` (SSSP, PageRank) and on ``cuda`` (TC,
+    phase 2d's graph), then the ``frontier`` backend's SSSP and PageRank
+    against step 4's ``torch`` arrays (the per-batch driver's).
+    ``cond_rec``, the set kernel's record, gets its launches from the
+    replayed SSSP ``cuda`` segment."""
+    from repro_torch.algos import triangles
+    readings = {}
+    for algo, backend in (("sssp", "cuda"), ("pagerank", "cuda"),
+                          ("sssp", "cuda_chained"),
+                          ("pagerank", "cuda_chained")):
+        static, step = paths[algo]
+        sess = repro_torch.bind_graph(csr, backend=backend,
+                                      capacity=2 * stream.num_adds,
+                                      device=DEV)
+        carry0 = sess.call(*static)
+        tag = f"{algo} {backend}"
+        readings[tag] = fused_vs_eager(
+            torch, counts, tag, sess.engine, sess.handle, stream, step,
+            carry0, busy=tag == "sssp cuda")
+        del sess, carry0
+        torch.cuda.empty_cache()
+    cond_rec["launches"] = \
+        readings["sssp cuda"]["replay"]["launches"]["graph_cond_set"]
+    require(readings["sssp cuda"]["replay"]["launches"],
+            ("fused_relax_rows", "graph_cond_set"))
+    syncs = readings["sssp cuda"]["replay"]["syncs"]
+    if syncs > SSSP_REPLAY_SYNCS:
+        raise AssertionError(f"a replayed SSSP segment made {syncs} host "
+                             f"syncs (at most {SSSP_REPLAY_SYNCS})")
+
+    tcsr, tstream = TC_DATA["csr"], TC_DATA["stream"]
+    sess = repro_torch.bind_graph(tcsr, backend="cuda",
+                                  capacity=2 * tstream.num_adds, device=DEV)
+    c0 = sess.call(triangles.static_tc)
+    readings["tc cuda"] = fused_vs_eager(
+        torch, counts, "tc cuda", sess.engine, sess.handle, tstream,
+        triangles.stream_step, c0)
+    del sess, c0
+    TC_DATA.clear()
+    torch.cuda.empty_cache()
+
+    clock = lambda: Timer(torch)
+    for algo, launched in (("sssp", ()), ("pagerank",
+                                          ("segment_sum_sorted",))):
+        tag = f"{algo} frontier"
+        fsess, props, _ = drive(torch, repro_torch, counts, csr, stream,
+                                tag, "frontier", paths[algo][0],
+                                paths[algo][1], clock, launched=launched,
+                                silent=GRAPH_KERNELS)
+        want = sssp_ref if algo == "sssp" else {"pr": pr_torch}
+        same_tree(torch, want, {k: props[k] for k in want}, tag)
+        steps = fsess.engine.steps
+        prep, t_static, t_stream = TIMES[tag]
+        log(f"[2g {tag}] static {t_static:.3f} s: {steps['sparse']} sparse "
+            f"steps, {steps['dense_chunks']} dense chunks; stream "
+            f"{t_stream:.3f} s (dense, fused, one segment: uncaptured); "
+            f"{', '.join(want)} equal the torch backend's bit for bit")
+        readings[tag] = {"static_s": t_static, "stream_s": t_stream,
+                         **steps}
+        del fsess, props
+        torch.cuda.empty_cache()
+    return readings
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -1876,6 +2143,7 @@ def main(argv=None) -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import csr_relax as CK
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import graph_cond as GC
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import repair as FK
     from repro_torch.kernels import segment as SK
@@ -1897,7 +2165,7 @@ def main(argv=None) -> int:
                 log(f"[ptxas] {src}: {line.strip()}")
     mark("build")
     clock = lambda: Timer(torch)
-    counts = Launches(FK, CK, SK, FA)
+    counts = Launches(_build)
     # a float32 reference states its matmul precision: full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1970,6 +2238,9 @@ def main(argv=None) -> int:
         D=D, B=BATCH, n=n, used=int((g.d_src < n).sum())))
     kernels[-1]["variant"] = (f"tiles of {T} output slots staged in shared "
                               f"memory, warp-searched splits")
+    # its launches: phase 2g's replayed SSSP segment, its path
+    cond_rec = check_cond(torch, args, flush, GC)
+    kernels.append(cond_rec)
     cuda_g = g
     sssp_cuda = {k: props[k] for k in ("dist", "parent")}
     del sess, h, ell, props, vals, keys, pool, fresh, dist
@@ -2109,7 +2380,8 @@ def main(argv=None) -> int:
     # -- 4. correctness ------------------------------------------------------
     tsess, tprops, _ = drive(
         torch, repro_torch, counts, csr, stream, "sssp torch", "torch",
-        sssp_static, sssp_step, clock, silent=FUSED + CHAINED)
+        sssp_static, sssp_step, clock,
+        silent=FUSED + CHAINED + ("graph_cond_set",), per_batch_driver=True)
     for k in ("dist", "parent"):
         if not torch.equal(sssp_cuda[k], tprops[k]):
             raise AssertionError(f"cuda and torch backends differ in {k}")
@@ -2135,7 +2407,7 @@ def main(argv=None) -> int:
     _, tprops, _ = drive(
         torch, repro_torch, counts, csr, stream, "pagerank torch", "torch",
         pr_static, pr_step, clock, launched=("segment_sum_sorted",),
-        silent=FUSED + CHAINED)
+        silent=FUSED + CHAINED + ("graph_cond_set",), per_batch_driver=True)
     d = (tprops["pr"].double() - pr_cuda.double()).abs()
     max_d, l1_d = float(d.max()), float(d.sum())
     top, mass = float(pr_cuda.max()), float(pr_cuda.double().sum())
@@ -2150,6 +2422,7 @@ def main(argv=None) -> int:
         raise AssertionError("cuda and torch PageRank differ beyond "
                              "max 1e-6 and 1e-4 of max(pr) / L1 1e-4 and "
                              "1e-5 of sum(pr)")
+    pr_torch = tprops["pr"].clone()
     del tprops, d
     torch.cuda.empty_cache()
 
@@ -2203,6 +2476,14 @@ def main(argv=None) -> int:
     mark("failover")
     kernels.append(pool_phase(torch, np, repro_torch, counts, args, FK))
     mark("pool")
+
+    # 2g. the fused executor against the per-batch driver; frontier
+    fused_phase(torch, repro_torch, counts, csr, stream,
+                {"sssp": (sssp_static, sssp_step),
+                 "pagerank": (pr_static, pr_step)}, sssp_cuda, pr_torch,
+                cond_rec)
+    del pr_torch
+    mark("fused executor, frontier")
 
     # -- 5. LM serving -------------------------------------------------------
     del csr, stream, post, sssp_cuda, pr_cuda, g

@@ -49,7 +49,7 @@ def _iterate(engine: Engine, g, props: Props, beta: float, delta: float,
     props["_absdiff"] = engine.full(0.0, F32)
 
     def cond_fn(p, it, col):
-        return it == 0 or bool(col.sum(p["_absdiff"]) > beta)
+        return (it == 0) | (col.sum(p["_absdiff"]) > beta)
 
     props = engine.fixed_point(g, sw, props, cond_fn, max_iter)
     props.pop("_absdiff")

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import device_loop
 from repro_torch.core.engine import Engine, Props
 from repro_torch.core.ir import EdgeSweep, Reduce
 from repro_torch.graph.csr import INF_W, INT
@@ -75,21 +76,20 @@ def incremental(engine: Engine, g, props: Props,
 
 def _phase1(p: Props) -> Props:
     """Invalidate the shortest-path subtree below deleted tree edges by
-    chasing parent pointers to a fixed point (the decremental pre-phase).
-    The reference's ``lax.while_loop`` is a Python loop: one host sync
-    per round."""
-    changed = True
-    while changed:
+    chasing parent pointers to a fixed point (the decremental pre-phase):
+    the reference's ``lax.while_loop`` through ``device_loop``."""
+    def body(state):
+        _, p = state
         par = p["parent"].clamp(0, p["parent"].shape[0] - 1)
         hitp = (p["parent"] >= 0) & p["modified"][par] & ~p["modified"]
-        p = {
+        return hitp.any(), {
             **p,
             "dist": torch.where(hitp, INF_W, p["dist"]),
             "parent": torch.where(hitp, NO_PARENT, p["parent"]),
             "modified": p["modified"] | hitp,
         }
-        changed = bool(hitp.any())
-    return p
+
+    return device_loop.while_loop(lambda s: s[0], body, (True, p))[1]
 
 
 def decremental(engine: Engine, g, props: Props,

@@ -31,16 +31,19 @@ through ``bind_graph``:
     sess.to_host()["dist"]                                 # explicit sync
 
 PageRank and triangle counting run the same way (``algos.pagerank``,
-``algos.triangles``); ``backend`` is ``"cuda"``, ``"cuda_chained"`` or
-``"torch"``.
+``algos.triangles``); ``backend`` is ``"cuda"``, ``"cuda_chained"``,
+``"frontier"`` (direction-optimised sparse steps) or ``"torch"``.
+``run_stream`` runs each segment of batches as one captured CUDA graph on
+the card (``Engine.run_stream`` is the per-batch baseline).
 
 A session owns one engine and its device-resident graph handle.  Every
 ΔG batch passes the admission guard first (default ``clamp``); a batch
 that overflows the diff pool rolls back, grows the pool and replays.
 Entry points run on the card unless ``device="cpu"`` is asked for.
 Checkpoints share ``repro``'s layout and state kinds: a checkpoint that
-``repro`` wrote names its backend ``jnp`` or ``pallas``, so
-``restore_session`` takes ``backend="torch"`` or ``"cuda"`` for it.
+``repro`` wrote names its backend ``jnp``, ``pallas`` or ``frontier``, so
+``restore_session`` takes ``backend="torch"``, ``"cuda"`` or
+``"frontier"`` for it.
 
 Backend failover is opt-in: ``bind_graph(csr, backend="cuda",
 failover=True)`` (or an explicit tuple of registry names) arms the chain
@@ -662,7 +665,8 @@ class GraphSession:
         base = [self._handle]
 
         def attempt():
-            h, c = step_fn(self._engine, base[0], batch, carry)
+            h, c = step_fn(self._engine.stream_view(), base[0], batch,
+                           carry)
             self._handle = h
             out["carry"] = c
 

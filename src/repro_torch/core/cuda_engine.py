@@ -30,6 +30,7 @@ import functools
 
 import torch
 
+from repro_torch.core import device_loop
 from repro_torch.core.engine import (Props, TorchEngine, dyn_from_state,
                                      dyn_state)
 from repro_torch.core.ir import EdgeSweep
@@ -130,7 +131,8 @@ class CudaEngine(TorchEngine):
         # pull layout: slots hold SOURCES
         ell = ell_apply_add(h.ell, h.g, g, batch.add_src, batch.add_dst,
                             batch.add_w, batch.add_mask,
-                            slot_value=batch.add_src, repack=self._repack)
+                            slot_value=batch.add_src, repack=self._repack,
+                            branch=device_loop.cond)
         return CudaHandle(g=g, ell=ell)
 
     def update_stacked(self, h: CudaHandle, batch: UpdateBatch,
@@ -163,8 +165,10 @@ class CudaEngine(TorchEngine):
     def batch_edge_flags(self, h: CudaHandle, qs, qd, mask):
         return super().batch_edge_flags(h.g, qs, qd, mask)
 
-    def count_wedges(self, h: CudaHandle, pair_fn, lane_flags, out_example):
-        return super().count_wedges(h.g, pair_fn, lane_flags, out_example)
+    def count_wedges(self, h: CudaHandle, pair_fn, lane_flags, out_example,
+                     bounds=None):
+        return super().count_wedges(h.g, pair_fn, lane_flags, out_example,
+                                    bounds=bounds)
 
     def sweep(self, h: CudaHandle, sw: EdgeSweep, props: Props) -> Props:
         return self._run_sweep(h, sw, props)

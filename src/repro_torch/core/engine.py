@@ -6,13 +6,17 @@ of ``repro.core.engine``).
   over the flat edge lanes.
 * ``CudaEngine`` (``core/cuda_engine.py``) — the hand-kernel backend.
 
-Control flow runs on the host: a fixed point checks its condition with
-one host sync per sweep, and ``run_stream`` reads the pool counters once
-per segment of batches, as the reference's stream executor does (its
-``lax.scan`` over a segment waits for CUDA graphs).  Wedge enumeration
-(``count_wedges``, triangle counting) loops over a region's max degree;
-that bound is read from the card once per offsets tensor and cached on
-the tensor's identity, so a call costs no sync unless the pool changed.
+Data-dependent loops (a fixed point, a wedge walk) go through
+``core/device_loop.py``: called directly they read their condition on the
+host once a trip; inside a captured stream segment they are conditional
+graph nodes.  ``TorchEngine.run_stream`` is the reference's fused stream
+executor: each segment of batches runs as one captured CUDA graph
+(``device_loop.SegmentGraph``) on the card, batch by batch on the CPU, and
+the pool counters are read once per segment.  ``Engine.run_stream`` is the
+reference's per-batch baseline.  Wedge enumeration (``count_wedges``,
+triangle counting) loops over a region's max degree; outside a capture
+that bound is read from the card once per offsets tensor and cached on the
+tensor's identity, inside one it stays on the device.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import device_loop
 from repro_torch.core.ir import EdgeSweep, Reduce
 from repro_torch.graph import diffcsr
 from repro_torch.graph.csr import CSR, INT, build_csr
@@ -33,7 +38,6 @@ from repro_torch.tensors import (clamp_index, in_range, resolve_device,
                                  to_device)
 
 Props = Dict[str, torch.Tensor]
-
 
 class Collectives:
     """Global reductions handed to fixed-point conditions (single device:
@@ -59,6 +63,29 @@ def edge_lane_flags(g: DynGraph, qs, qd, mask=None) -> torch.Tensor:
     flags = torch.zeros((E + D,), dtype=BOOL, device=g.device)
     flags = set_drop(flags, torch.where(f1 & mask, p1, E + D), True)
     return set_drop(flags, torch.where(f2 & mask & ~f1, E + p2, E + D), True)
+
+
+class _StreamView:
+    """Engine facade handed to stream steps inside ``run_stream``.
+
+    Semantics are the wrapped engine's; ``count_wedges`` gets the
+    segment's static bounds (``bounds``), so inside a captured segment it
+    reads no max degree on the host.  Engines whose interactive paths are
+    host-driven (FrontierEngine's direction optimisation) subclass it to
+    swap in their dense lowering."""
+
+    def __init__(self, engine: "Engine", bounds=None):
+        self._engine = engine
+        self._bounds = bounds
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def count_wedges(self, handle, pair_fn, lane_flags, out_example,
+                     bounds=None):
+        return self._engine.count_wedges(
+            handle, pair_fn, lane_flags, out_example,
+            bounds=bounds if bounds is not None else self._bounds)
 
 
 class WedgeCtx:
@@ -99,6 +126,9 @@ class Engine:
         # host reads of a max degree (one sync each), for the tests and
         # the smoke's sync counts
         self.deg_syncs = 0
+        # segment runners of the fused stream executor, keyed by
+        # (step_fn, bounds, handle shapes, batch size, batches, carry)
+        self._stream_cache: Dict[Any, Any] = {}
 
     # -- construction ------------------------------------------------------
     def prepare(self, csr: CSR, diff_capacity: int) -> Any:
@@ -134,7 +164,8 @@ class Engine:
     def vertex_map(self, handle, fn: Callable, props: Props) -> Props:
         raise NotImplementedError
 
-    def count_wedges(self, handle, pair_fn, lane_flags, out_example):
+    def count_wedges(self, handle, pair_fn, lane_flags, out_example,
+                     bounds=None):
         raise NotImplementedError
 
     def _max_deg(self, region: str, offsets: torch.Tensor) -> int:
@@ -220,21 +251,97 @@ class Engine:
         members by ``serve.batch``)."""
         return staged
 
+    def stream_view(self, bounds=None) -> "Engine":
+        """The engine facade handed to stream steps (see _StreamView)."""
+        return _StreamView(self, bounds)
+
+    def static_wedge_bounds(self, handle):
+        """Host-static (max main degree, diff capacity) bounds of a
+        segment's wedge loops: the main offsets change only at merge and
+        grow (segment boundaries); the diff region is bounded by its
+        capacity.  Unlike the reference's, they read nothing on the host:
+        None unless the max-degree cache already holds this main region
+        (so SSSP and PageRank segments read no degree; a captured wedge
+        loop without bounds computes the main region's max degree on the
+        device instead)."""
+        g = self.handle_graph(handle)
+        cached = self._deg_cache.get("main")
+        if cached is None or cached[0] is not g.offsets:
+            return None
+        return cached[1], g.diff_capacity
+
+    def _static_leaves(self, handle) -> tuple:
+        """The handle's leaves that no stream step writes: the main
+        region's offsets, sources and destinations (deletes and revivals
+        write ``alive`` and ``w``; adds go to the pool)."""
+        g = self.handle_graph(handle)
+        return (g.offsets, g.src, g.dst)
+
     def _diff_capacity(self, handle) -> int:
         return self.handle_graph(handle).diff_capacity
 
     def _counters(self, handle) -> Tuple[int, int, int]:
         return tuple(int(x) for x in self.handle_counters(handle).tolist())
 
-    def run_stream(self, handle, stream, batch_size: int, step_fn, carry,
-                   segment_size: int = 8, compact_frac: float = 0.5):
-        """The reference's segmented stream executor, dispatched batch by
-        batch: the stream is cut into segments of ``segment_size``
-        batches, and the pool counters are read once per segment.
-        Overflow rolls the segment back to its start, grows the pool and
-        replays it; heavy tombstoning compacts the pool at the segment's
-        end.  (The reference runs each segment as one ``lax.scan``; a
-        captured CUDA graph waits for ROADMAP Queue 1 item 9.)"""
+    def _handle_shape_key(self, handle) -> tuple:
+        """The handle's capacities (E_cap, D_cap): the part of a segment
+        runner's key that ``grow`` invalidates."""
+        g = self.handle_graph(handle)
+        return (g.main_capacity, g.diff_capacity)
+
+    def _evict_stream_cache(self, shape_key: tuple) -> None:
+        """Drop the segment runners (and their captured graphs) of
+        ``shape_key``: after ``grow`` they can never run again."""
+        for k in [k for k in self._stream_cache if shape_key in k]:
+            self._stream_cache.pop(k)
+
+    def _stream_scan(self, step_fn, bounds, shape_key, batch_size: int,
+                     count: int, carry_key: tuple, static=()):
+        """The runner of one segment of ``count`` batches: a
+        ``device_loop.SegmentGraph`` on the card (uncaptured at its first
+        call, captured at its second), a ``device_loop.EagerSegment`` on
+        the CPU.  Cached per (step_fn, bounds, handle shapes, batch size,
+        count, carry shapes, main region); a new main region replaces the
+        runners of the old one."""
+        base = (step_fn, bounds, shape_key, batch_size, count, carry_key)
+        key = base + (tuple(id(t) for t in static),)
+        run = self._stream_cache.get(key)
+        if run is None:
+            for k in [k for k in self._stream_cache if k[:-1] == base]:
+                self._stream_cache.pop(k)
+            view = self.stream_view(bounds)
+
+            def body(handle, carry, batches):
+                for j in range(count):
+                    handle, carry = step_fn(view, handle, batches.row(j),
+                                            carry)
+                return handle, carry
+
+            if self.device.type == "cuda":
+                run = device_loop.SegmentGraph(
+                    body, self.handle_counters, self.device, static)
+            else:
+                run = device_loop.EagerSegment(body, self.handle_counters)
+            self._stream_cache[key] = run
+        return run
+
+    def _segment_runner(self, step_fn, handle, carry, batch_size: int,
+                        count: int):
+        carry_key = tuple((tuple(t.shape), t.dtype)
+                          for t in device_loop.tensors(carry))
+        return self._stream_scan(
+            step_fn, self.static_wedge_bounds(handle),
+            self._handle_shape_key(handle), batch_size, count, carry_key,
+            self._static_leaves(handle))
+
+    def _run_stream_fused(self, handle, stream, batch_size: int, step_fn,
+                          carry, segment_size: int, compact_frac: float):
+        """The fused stream driver: cut the stream into segments of
+        padded batches, run each through ``_segment_runner`` (on the card
+        one captured graph, no host round trip between batches), and read
+        the pool counters once per segment: overflow rolls the segment
+        back, grows the pool (the one numpy exit) and replays it; heavy
+        tombstoning compacts the pool at the segment's end."""
         nb = stream.num_batches(batch_size)
         if nb == 0:
             return handle, carry
@@ -243,15 +350,17 @@ class Engine:
         i = 0
         while i < nb:
             k = min(seg, nb - i)
-            batches = [stream.batch(i + j, batch_size, device=self.device)
-                       for j in range(k)]
+            # stacked once; a grow-and-replay reuses it
+            stacked = stream.stacked(batch_size, i, k, device=self.device)
             while True:
+                run = self._segment_runner(step_fn, handle, carry,
+                                           batch_size, k)
+                # no runner writes the handle it is given
                 snap = (handle, carry)
                 _faults.fire("segment_scan", engine=self.name, start=i,
                              count=k)
-                for batch in batches:
-                    handle, carry = step_fn(self, handle, batch, carry)
-                of, _used, dead = self._counters(handle)
+                handle, carry, (of, _used, dead) = run(handle, carry,
+                                                       stacked)
                 if of > of0:
                     # adds were dropped inside the segment: roll back,
                     # grow the pool, replay on the larger shapes
@@ -265,10 +374,32 @@ class Engine:
             i += k
         return handle, carry
 
-    def _stream_scan(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the fused stream executor waits for CUDA graphs (ROADMAP "
-            "Queue 1 item 9)")
+    def run_stream(self, handle, stream, batch_size: int, step_fn, carry,
+                   segment_size: int = 8, compact_frac: float = 0.5):
+        """The reference's per-batch baseline: one counter read per batch
+        (``segment_size`` has no effect, every batch is its own segment);
+        overflow rolls the batch back, grows the pool and replays it.
+        ``TorchEngine`` and its subclasses run the fused executor
+        instead; this stays callable as ``Engine.run_stream(engine,
+        ...)`` to compare the two."""
+        view = self.stream_view()
+        of0 = self._counters(handle)[0]
+        for i in range(stream.num_batches(batch_size)):
+            batch = stream.batch(i, batch_size, device=self.device)
+            snap = (handle, carry)
+            _faults.fire("segment_scan", engine=self.name, start=i, count=1)
+            handle, carry = step_fn(view, handle, batch, carry)
+            of, _used, dead = self._counters(handle)
+            while of > of0:
+                handle, carry = self.grow(snap[0]), snap[1]
+                of0 = 0
+                snap = (handle, carry)
+                handle, carry = step_fn(view, handle, batch, carry)
+                of, _used, dead = self._counters(handle)
+            of0 = of
+            if dead > compact_frac * max(self._diff_capacity(handle), 1):
+                handle = self.compact_handle(handle)
+        return handle, carry
 
     # -- durable state -----------------------------------------------------
     state_kind = "none"
@@ -302,11 +433,11 @@ def dyn_from_state(tree: Dict[str, Any], n: int, device) -> DynGraph:
 
 def state_to_csr(tree: Dict[str, Any], meta: dict,
                  device=None) -> Tuple[CSR, int]:
-    """Collapse a packed state of kind 'dyn' or 'pallas' to
+    """Collapse a packed state of kind 'dyn', 'pallas' or 'frontier' to
     ``(CSR, diff_capacity)``: the alive edge set survives exactly, the
     pool layout resets."""
     kind, n = meta["kind"], meta["n"]
-    if kind not in ("dyn", "pallas"):
+    if kind not in ("dyn", "pallas", "frontier"):
         raise ValueError(f"unknown packed-state kind {kind!r}")
     g = dyn_from_state(tree if kind == "dyn" else tree["g"], n, "cpu")
     es, ed, ew, ea = (x.numpy() for x in g.edge_arrays())
@@ -391,13 +522,14 @@ class TorchEngine(Engine):
 
     def fixed_point(self, g, sw: EdgeSweep, props: Props,
                     cond_fn: Callable, max_iter: int) -> Props:
-        """The reference's ``lax.while_loop``: one host sync per sweep to
-        read the condition."""
+        """The reference's ``lax.while_loop`` through ``device_loop``: one
+        host read of the condition per sweep, or a WHILE node inside a
+        captured segment."""
         col = Collectives()
-        it = 0
-        while it < max_iter and bool(cond_fn(props, it, col)):
-            props = self._run_sweep(g, sw, props)
-            it += 1
+        _, props = device_loop.while_loop(
+            lambda s: (s[0] < max_iter) & cond_fn(s[1], s[0], col),
+            lambda s: (s[0] + 1, self._run_sweep(g, sw, s[1])),
+            (0, props))
         return props
 
     def vertex_map(self, g, fn: Callable, props: Props) -> Props:
@@ -405,24 +537,41 @@ class TorchEngine(Engine):
 
     # -- wedges (triangle counting) ----------------------------------------
     def count_wedges(self, g: DynGraph, pair_fn: Callable,
-                     lane_flags: Dict[str, torch.Tensor], out_example):
+                     lane_flags: Dict[str, torch.Tensor], out_example,
+                     bounds=None):
         """Sum ``pair_fn(x, y, z, z_ok, ctx)`` over every wedge x→y, x→z:
         each edge lane (x, y) walks x's row j = 0, 1, ... in the main
-        region, then in the diff pool, up to the region's max degree (read
-        from the cache, so a host loop runs no empty iterations; the
-        reference bounds the pool by its capacity inside ``lax.scan``,
-        and the extra iterations there add zeros).
-        ``out_example`` is a 0-d tensor or a tuple of them, and each sum
-        keeps its dtype: partial sums stay int32 where the reference's
-        do (``torch.sum`` of int32 would give int64)."""
+        region, then in the diff pool, up to the region's max degree.
+        Outside a capture that bound comes from the cache (a host loop
+        with no empty iteration); inside one, a WHILE node runs to the
+        max degree computed on the device.  The reference's static
+        ``bounds`` (max main degree, diff capacity) run the pool's loop to
+        its capacity; the iterations past its max degree add zeros, so
+        the counts are the same.  Here ``bounds[0]`` sets the main region's
+        search rounds in a capture; the pool's come from its max degree on
+        the device.  ``out_example`` is a 0-d tensor or a tuple of them, and
+        each sum keeps its dtype: partial sums stay int32 where the
+        reference's do (``torch.sum`` of int32 would give int64)."""
         esrc, edst, ew, ealive = g.edge_arrays()
         E, D = g.main_capacity, g.diff_capacity
-        max_main = self._max_deg("main", g.offsets)
-        max_diff = self._max_deg("diff", g.d_offsets)
+        on_device = device_loop.capturing()
         # no row is longer than its region's max degree L, so a search in
         # it settles after L.bit_length() rounds; the reference runs 32,
-        # and the rounds after a search settles change nothing
-        rounds = (max_main.bit_length(), max_diff.bit_length())
+        # and the rounds after a search settles change nothing.  In a
+        # capture the main region's L is the static bound; the pool grows
+        # inside the segment, so its searches loop on the device to the
+        # bit length of its max degree there
+        if on_device:
+            max_main = max_diff = None
+            rounds = (min(int(bounds[0]).bit_length(), 32)
+                      if bounds is not None else
+                      _device_rounds(_max_degree(g.offsets)),
+                      _device_rounds(_max_degree(g.d_offsets)))
+        else:
+            max_main = self._max_deg("main", g.offsets)
+            max_diff = self._max_deg("diff", g.d_offsets)
+            rounds = (min(max_main.bit_length(), 32),
+                      min(max_diff.bit_length(), 32))
 
         def is_edge_fn(qs, qd):
             return diffcsr.is_edge(g, qs, qd, rounds)
@@ -437,18 +586,20 @@ class TorchEngine(Engine):
                                fl[(E + p2).clamp(0, E + D - 1)], r)
 
         single = not isinstance(out_example, tuple)
-        total = [torch.zeros((), dtype=x.dtype, device=self.device)
-                 for x in ((out_example,) if single else out_example)]
-        for region, count, offsets, dst, alive, cap, base in (
-                ("main", max_main, g.offsets, g.dst, g.alive, E, 0),
-                ("diff", max_diff if D else 0, g.d_offsets, g.d_dst,
-                 g.d_alive, D, E)):
+        total = tuple(torch.zeros((), dtype=x.dtype, device=self.device)
+                      for x in ((out_example,) if single else out_example))
+        for count, offsets, dst, alive, cap, base in (
+                (max_main, g.offsets, g.dst, g.alive, E, 0),
+                (max_diff if D else 0, g.d_offsets, g.d_dst, g.d_alive, D,
+                 E)):
             if count == 0:
                 continue
             # the row bounds of every lane's source, hoisted out of the loop
             start = take(offsets, esrc)
             end = take(offsets, esrc.to(torch.int64) + 1)
-            for j in range(count):
+
+            def walk(j, tot, start=start, end=end, dst=dst, alive=alive,
+                     cap=cap, base=base):
                 pos = start + j
                 ok = pos < end
                 safe = pos.clamp(0, max(cap - 1, 0))
@@ -457,9 +608,19 @@ class TorchEngine(Engine):
                 ctx = WedgeCtx(g, lane_flags, base + safe, is_edge_fn,
                                edge_flag_fn)
                 contrib = pair_fn(esrc, edst, z, z_ok & ealive, ctx)
-                total = [t + c.sum(dtype=t.dtype) for t, c in
-                         zip(total, (contrib,) if single else contrib)]
-        return total[0] if single else tuple(total)
+                return tuple(t + c.sum(dtype=t.dtype) for t, c in
+                             zip(tot, (contrib,) if single else contrib))
+
+            if on_device:
+                deg_max = _max_degree(offsets)
+                _, total = device_loop.while_loop(
+                    lambda s: s[0] < deg_max,
+                    lambda s, walk=walk: (s[0] + 1, walk(s[0], s[1])),
+                    (0, total))
+            else:
+                for j in range(count):
+                    total = walk(j, total)
+        return total[0] if single else total
 
     # -- updates -----------------------------------------------------------
     def update_del(self, g: DynGraph, batch: UpdateBatch) -> DynGraph:
@@ -486,11 +647,39 @@ class TorchEngine(Engine):
     def grow(self, g: DynGraph, factor: float = 2.0) -> DynGraph:
         _faults.fire("pool_merge", engine=self.name,
                      diff_capacity=g.diff_capacity)
+        # the old capacity's captured segments can never run again
+        self._evict_stream_cache((g.main_capacity, g.diff_capacity))
         cap = max(int(g.diff_capacity * factor), g.diff_capacity + 16)
         return diffcsr.merge(g, diff_capacity=cap)
 
     def compact_handle(self, g: DynGraph) -> DynGraph:
         return diffcsr.compact(g)
+
+    def run_stream(self, handle, stream, batch_size: int, step_fn, carry,
+                   segment_size: int = 8, compact_frac: float = 0.5):
+        """The device-resident stream executor: every segment of batches
+        is one captured CUDA graph on the card (``Engine._run_stream_fused``);
+        ``Engine.run_stream`` is the per-batch baseline."""
+        return self._run_stream_fused(handle, stream, batch_size, step_fn,
+                                      carry, segment_size, compact_frac)
+
+
+def _max_degree(offsets: torch.Tensor) -> torch.Tensor:
+    """A region's max row length, on the device (0-d)."""
+    return (offsets[1:] - offsets[:-1]).max()
+
+
+def _device_rounds(deg_max: torch.Tensor) -> Callable:
+    """``row_searchsorted``'s rounds as a device loop: ``deg_max``'s bit
+    length (a count of the shifts that leave it nonzero) read by a WHILE
+    node, no host read."""
+    bits = ((deg_max >> torch.arange(31, device=deg_max.device)) > 0).sum()
+
+    def loop(step, state):
+        return device_loop.while_loop(
+            lambda s: s[0] < bits, lambda s: (s[0] + 1, step(s[1])),
+            (0, state))[1]
+    return loop
 
 
 class _View:

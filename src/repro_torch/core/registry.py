@@ -8,7 +8,9 @@ Built-ins are registered by module path and imported on first use:
 * ``cuda``  — :class:`~repro_torch.core.cuda_engine.CudaEngine`, the
   hand-kernel backend with fused kernels;
 * ``cuda_chained`` — the same engine on the per-op kernel chain
-  (:func:`~repro_torch.core.cuda_engine.CudaChainedEngine`).
+  (:func:`~repro_torch.core.cuda_engine.CudaChainedEngine`);
+* ``frontier`` — :class:`~repro_torch.core.frontier_engine.FrontierEngine`,
+  direction-optimised sparse steps over a push ELL (tensor ops only).
 
 ``register_engine`` plugs in more.  ``shared_engine`` hands the serving
 pool one engine per (backend, scope, options); ``failover_chain`` names
@@ -40,6 +42,7 @@ _BUILTIN_PATHS: Dict[str, str] = {
     "torch": "repro_torch.core.engine:TorchEngine",
     "cuda": "repro_torch.core.cuda_engine:CudaEngine",
     "cuda_chained": "repro_torch.core.cuda_engine:CudaChainedEngine",
+    "frontier": "repro_torch.core.frontier_engine:FrontierEngine",
 }
 
 _FACTORIES: Dict[str, EngineFactory] = {}
@@ -163,6 +166,7 @@ def clear_shared_engines() -> None:
 DEFAULT_CHAIN: Dict[str, tuple] = {
     "cuda": ("cuda_chained", "torch"),
     "cuda_chained": ("torch",),
+    "frontier": ("torch",),
 }
 
 

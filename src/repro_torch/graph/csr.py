@@ -83,26 +83,34 @@ def build_csr(n: int, edges, weights=None, dedupe: bool = True,
 
 def row_searchsorted(sorted_vals: torch.Tensor, lo: torch.Tensor,
                      hi: torch.Tensor, queries: torch.Tensor,
-                     rounds: int = 32) -> torch.Tensor:
+                     rounds=32) -> torch.Tensor:
     """For each query q_i, first index in sorted_vals[lo_i:hi_i] >= q_i.
 
     The reference's ``lax.fori_loop`` of 32 gather rounds becomes a Python
     loop of the same fixed count: no host sync, enough for any row
     length up to 2^31.  A caller that knows every row is at most L long
     passes ``rounds=L.bit_length()``, after which the loop changes
-    nothing."""
-    lo = lo.to(INT)
-    hi = hi.to(INT)
+    nothing.  ``rounds`` may also be a function ``rounds(step, state)``
+    that applies ``step`` to the (lo, hi) state as many times as it
+    decides (a loop on the device, in a captured stream segment)."""
     cap = max(int(sorted_vals.shape[0]) - 1, 0)
-    for _ in range(rounds):
+
+    def step(state):
+        lo, hi = state
         active = lo < hi
         mid = (lo + hi) // 2
         v = (sorted_vals[mid.clamp(0, cap)] if sorted_vals.shape[0]
              else torch.zeros_like(mid))
         pred = v < queries
-        lo = torch.where(active & pred, mid + 1, lo)
-        hi = torch.where(active & ~pred, mid, hi)
-    return lo
+        return (torch.where(active & pred, mid + 1, lo),
+                torch.where(active & ~pred, mid, hi))
+
+    state = (lo.to(INT), hi.to(INT))
+    if callable(rounds):
+        return rounds(step, state)[0]
+    for _ in range(rounds):
+        state = step(state)
+    return state[0]
 
 
 # ---------------------------------------------------------------------------

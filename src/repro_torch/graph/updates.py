@@ -36,6 +36,11 @@ class UpdateBatch:
     def device(self) -> torch.device:
         return self.add_src.device
 
+    def row(self, j: int) -> "UpdateBatch":
+        """Batch ``j`` of a stacked (count, B)-leaved batch (views)."""
+        return UpdateBatch(**{f.name: getattr(self, f.name)[j]
+                              for f in dataclasses.fields(self)})
+
 
 @dataclasses.dataclass(frozen=True)
 class UpdateStream:
@@ -79,6 +84,34 @@ class UpdateStream:
             add_src=put(a[:, 0]), add_dst=put(a[:, 1]),
             add_w=put(np.maximum(a[:, 2], 1)), add_mask=put(am),
             del_src=put(d[:, 0]), del_dst=put(d[:, 1]), del_mask=put(dm))
+
+    def stacked(self, batch_size: int, start: int = 0,
+                count: int | None = None, device=None) -> UpdateBatch:
+        """A (count, B)-leaved UpdateBatch: batches ``[start, start +
+        count)`` stacked, lane for lane the reference's ``stacked`` (the
+        segment a fused ``run_stream`` runs).  The seven leaves cross to
+        the device as one int32 block from pinned memory, without a host
+        sync; the masks are cast back to bool there."""
+        dev = resolve_device(device)
+        if count is None:
+            count = self.num_batches(batch_size) - start
+        block = np.zeros((7, count, batch_size), dtype=np.int32)
+        for j in range(count):
+            lo = (start + j) * batch_size
+            for arr, rows in ((self.adds, slice(0, 3)),
+                              (self.dels, slice(4, 6))):
+                chunk = arr[lo:lo + batch_size]
+                with np.errstate(invalid="ignore"):
+                    block[rows, j, :chunk.shape[0]] = chunk.T
+                block[rows.stop, j, :chunk.shape[0]] = 1
+        block[2] = np.maximum(block[2], 1)
+        host = torch.from_numpy(block)
+        if dev.type == "cuda":
+            host = host.pin_memory()
+        t = host.to(dev, non_blocking=True)
+        return UpdateBatch(add_src=t[0], add_dst=t[1], add_w=t[2],
+                           add_mask=t[3].bool(), del_src=t[4],
+                           del_dst=t[5], del_mask=t[6].bool())
 
     def batches(self, batch_size: int, device=None) -> Iterator[UpdateBatch]:
         for i in range(self.num_batches(batch_size)):

@@ -38,6 +38,7 @@ SOURCE_FLAGS = {
     "csr_relax.cu": ("--fmad=false",),
     "segment.cu": ("--fmad=false",),
     "flash_attention.cu": (),
+    "graph_cond.cu": (),
 }
 
 
@@ -58,7 +59,30 @@ _LIB = None
 # source file; ``seconds`` is the wall time of the whole parallel build
 BUILD_INFO = {"seconds": None, "logs": {}, "paths": {}}
 
+# every kernel module's launch counts, by module name: a module registers
+# its table with ``launch_table`` when it is imported, and the captured
+# segments' tallies (``core/device_loop.py``) and the smoke read them all
+# from here, so no reader keeps a list of modules of its own
+LAUNCH_TABLES: dict = {}
+
+
+def launch_table(module: str, *kernels: str) -> dict:
+    """The launch counts of ``module``'s kernels (each wrapper adds one
+    where it launches), registered in ``LAUNCH_TABLES``."""
+    return LAUNCH_TABLES.setdefault(module, dict.fromkeys(kernels, 0))
+
+
+def reset_all_launches() -> None:
+    for table in LAUNCH_TABLES.values():
+        table.update(dict.fromkeys(table, 0))
+
+
+def all_launches() -> dict:
+    """Every registered kernel's count, as one {kernel: launches} dict."""
+    return {k: v for t in LAUNCH_TABLES.values() for k, v in t.items()}
+
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+U64 = ctypes.c_ulonglong
 _SIGNATURES = {
     # repair.cu — ell_src, ell_w, vals, row_min, row_arg, rows, counts,
     # R, K, n, block, stream
@@ -79,6 +103,18 @@ _SIGNATURES = {
     # flash_attention.cu — q, k, v, o, BH, S, dh, is_bf16, causal, scale,
     # softcap, stream
     "repro_flash_attention": [P] * 4 + [I] * 5 + [F] * 2 + [P],
+    # graph_cond.cu — the conditional nodes of core/device_loop.py:
+    # stream, handle out
+    "repro_cond_handle": [P, P],
+    # handle, predicate (device bool), negate, stream
+    "repro_cond_set": [U64, P, I, P],
+    # stream, handle, kind (0 IF, 1 WHILE), body graph out, node out
+    "repro_cond_node": [P, U64, I, P, P],
+    # body stream, body graph
+    "repro_cond_body_begin": [P, P],
+    "repro_cond_body_end": [P],
+    # stream, node
+    "repro_cond_node_end": [P, P],
 }
 
 

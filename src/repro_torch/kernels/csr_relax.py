@@ -30,7 +30,8 @@ from repro_torch.kernels._build import stream as _stream
 from repro_torch.kernels.repair import row_sum_plain
 from repro_torch.tensors import take
 
-LAUNCHES = {"relax_rowmin": 0, "spmv_rowsum": 0, "relax_rowargmin": 0}
+LAUNCHES = _build.launch_table(__name__, "relax_rowmin", "spmv_rowsum",
+                                "relax_rowargmin")
 
 
 def reset_launches() -> None:

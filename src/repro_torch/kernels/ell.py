@@ -9,7 +9,9 @@
   vertex's first row, for the vertex combine of float row sums;
 * ``lane2slot`` maps every edge lane to its flat slot, so deletions and
   revivals patch the pack in place; only appends to the diff pool, which
-  shift diff lanes, rebuild it.
+  shift diff lanes, rebuild it;
+* ``pack_push_ell`` is the same layout grouped by source (the frontier
+  engine's push pack).
 
 Property vectors handed to the kernels are padded to n+1 with the
 reduction identity at slot n, so empty slots gather the identity.
@@ -83,6 +85,16 @@ def pack_ell(g: DynGraph, k: int = 8, row_tile: int = 128) -> Ell:
     grouped by DESTINATION (pull layout — the relax kernel)."""
     esrc, edst, ew, ealive = g.edge_arrays()
     return _pack(g.n, esrc, edst, ew, _materialized(g), ealive, k, row_tile)
+
+
+def pack_push_ell(g: DynGraph, k: int = 8, row_tile: int = 128) -> Ell:
+    """Row-split ELL grouped by SOURCE (push layout, the frontier
+    engine's sparse steps): active vertices map to their out-edge rows,
+    so a step touches O(|frontier|·K) slots instead of all E lanes.
+    Field names keep the Ell convention with roles swapped: ``row2dst``
+    holds the row's SOURCE vertex and ``ell_src`` the DESTINATIONS."""
+    esrc, edst, ew, ealive = g.edge_arrays()
+    return _pack(g.n, edst, esrc, ew, _materialized(g), ealive, k, row_tile)
 
 
 def _pack(n, eother, egroup, ew, emat, ealive, k, row_tile) -> Ell:
@@ -178,12 +190,19 @@ def ell_revive(ell: Ell, g_prev: DynGraph, src, dst, w, mask,
     return patch_ell_revive(ell, lane, slot_value, w, active)
 
 
+def _host_branch(pred, true_fn, false_fn, operand):
+    return true_fn(operand) if bool(pred) else false_fn(operand)
+
+
 def ell_apply_add(ell: Ell, g_prev: DynGraph, g_new: DynGraph,
-                  src, dst, w, mask, slot_value, repack) -> Ell:
+                  src, dst, w, mask, slot_value, repack,
+                  branch=_host_branch) -> Ell:
     """An addition batch against the pack: ``repack(g_new)`` when the
     pool moved, else the revivals patched in place.  The reference's
-    ``lax.cond`` is a branch here: one host sync per batch (the serving
-    pool reads a whole group's flags in one, ``serve/batch.py``)."""
-    if bool(pool_moved(g_prev, g_new)):
-        return repack(g_new)
-    return ell_revive(ell, g_prev, src, dst, w, mask, slot_value)
+    ``lax.cond`` is ``branch(pred, true_fn, false_fn, operand)``: by
+    default a host branch (one host sync per batch); the engines hand in
+    the stream executor's (``core/device_loop.cond``), and the serving
+    pool reads a whole group's flags in one (``serve/batch.py``)."""
+    return branch(
+        pool_moved(g_prev, g_new), lambda _: repack(g_new),
+        lambda e: ell_revive(e, g_prev, src, dst, w, mask, slot_value), ell)

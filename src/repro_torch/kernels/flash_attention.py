@@ -28,7 +28,7 @@ from repro_torch.kernels._build import stream as _stream
 
 NEG = -1e30
 BK = 512
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = _build.launch_table(__name__, "flash_attention")
 
 
 def reset_launches() -> None:

@@ -56,8 +56,9 @@ ROW_TILE = 128          # ELL row rounding; a block size that always divides R
 DEFAULT_BLOCK = 256     # rows per CUDA block of fused_relax_rows
 MERGE_TILE = 1024       # output slots per CUDA block of merge_pool_sorted
 
-LAUNCHES = {"fused_relax_rows": 0, "fused_spmv_rows": 0,
-            "merge_pool_sorted": 0, "merge_pool_sorted_batched": 0}
+LAUNCHES = _build.launch_table(__name__, "fused_relax_rows",
+                                "fused_spmv_rows", "merge_pool_sorted",
+                                "merge_pool_sorted_batched")
 
 
 def reset_launches() -> None:

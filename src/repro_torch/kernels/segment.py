@@ -22,7 +22,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import check, cuda_device, ptr, raise_on
 from repro_torch.kernels._build import stream as _stream
 
-LAUNCHES = {"segment_sum_sorted": 0}
+LAUNCHES = _build.launch_table(__name__, "segment_sum_sorted")
 
 
 def reset_launches() -> None:

@@ -13,11 +13,17 @@ crossing; nothing fires unless a test armed an injector.
                        match=lambda ctx: ctx.get("engine") == "cuda"):
         sess.apply(batch)          # raises at the cuda launch seam
 
-Seams are *host-side* boundaries.  The port runs eagerly, so a seam
+Seams are *host-side* boundaries.  Where the port runs eagerly a seam
 fires on EVERY crossing: an ``after=`` / ``times=`` schedule counts
-each batch's launch.  (In ``repro`` a seam inside a jitted function
-fires only while it is traced, so the same schedule counts compiles
-there; compare end states across the packages, not ``fired`` counts.)
+each batch's launch.  Inside a stream segment that the card replays as
+a captured CUDA graph (``core/device_loop.SegmentGraph``) the seams of
+the step body (``kernel_launch``) fire when the segment runs uncaptured
+(on the CPU, and a segment's first use on the card) and while it is
+captured, and not on its replays; ``segment_scan`` sits in the driver
+and fires once per segment every time.  (In ``repro`` a seam inside a
+jitted function fires only while it is traced, so the same schedule
+counts compiles there; compare end states across the packages, not
+``fired`` counts.)
 
 Named seams (instrumented call sites):
 
@@ -34,6 +40,8 @@ Named seams (instrumented call sites):
                            counter readback in the session layer and the
                            pool's one read per group round
   * ``segment_scan``     — per-segment dispatch in ``Engine.run_stream``
+                           (per batch) and the fused executor
+                           (``Engine._run_stream_fused``, per segment)
 """
 from __future__ import annotations
 

@@ -6,8 +6,8 @@ sessions, with repro's Session as a fifth leg, on the CPU:
                          ==  the port's hand-staged algorithm
                          ==  repro's Session on the same program
 
-for SSSP, PageRank and TC on the ``torch`` and ``cuda`` backends (kernel
-wrappers on their plain versions).  Integers are bit-exact; PageRank
+for SSSP, PageRank and TC on the ``torch``, ``cuda`` (kernel wrappers on
+their plain versions) and ``frontier`` backends.  Integers are bit-exact; PageRank
 meets the conformance tolerances against the oracle and rtol 1e-5
 against repro.  An armed session fed the stream batch by batch equals
 the one-shot run bit for bit."""
@@ -28,7 +28,7 @@ from repro_torch.algos import triangles as t_tc
 from repro_torch.core.registry import make_engine
 from conformance import digraph_scenario, program, sym_scenario
 
-BACKENDS = ["torch", "cuda"]
+BACKENDS = ["torch", "cuda", "frontier"]
 PR_KNOBS = {"beta": 1e-4, "delta": 0.85, "maxIter": 100}
 # (algorithm, program, function, scenario); the cells repro's per-batch
 # DSL runs can afford on the CPU

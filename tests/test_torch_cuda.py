@@ -907,3 +907,248 @@ def test_set_drop_last_lane_wins_on_card(dev):
     want = set_drop(buf, idx, vals, last_wins=True)
     got = set_drop(buf.to(dev), idx.to(dev), vals.to(dev), last_wins=True)
     assert torch.equal(got.cpu(), want)
+
+
+# -- the fused stream executor (captured CUDA graphs, conditional nodes) ----
+
+def test_captured_while_and_if_match_eager(dev):
+    """A WHILE node (a loop of data-dependent trips with a kernel launch in
+    its body), the two IF nodes of a branch and a loop inside a loop (two
+    deep, as a captured wedge walk's pool searches), run uncaptured at the
+    segment's first call, then captured once and replayed on new inputs,
+    equal the host-driven loop; ``LAUNCHES`` gets the body's launches once
+    per trip the card ran."""
+    from repro_torch.core import device_loop as DL
+    ell_src = torch.randint(0, 201, (256, 8), dtype=torch.int32, device=dev)
+    ell_w = torch.randint(1, 9, (256, 8), dtype=torch.int32, device=dev)
+
+    def body(h, c, b):
+        i, x = DL.while_loop(lambda s: s[1].sum() < 5000,
+                             lambda s: (s[0] + 1, s[1] * 2 + b[0]),
+                             (0, h["x"]))
+        y = DL.cond(x.sum() > 7000, lambda o: o + 1, lambda o: o - 1,
+                    h["y"])
+
+        def relax(s):
+            rmin = TK.fused_relax_rows(ell_src, ell_w, s[1], block=128)[0]
+            v = torch.minimum(s[1][:-1], rmin[:200])
+            return s[0] + 1, torch.cat([v, s[1][-1:]])
+
+        _, vals = DL.while_loop(lambda s: s[0] < h["k"], relax,
+                                (0, h["vals"]))
+
+        def outer(s):
+            _, inner = DL.while_loop(lambda t: t[0] < s[0],
+                                     lambda t: (t[0] + 1, t[1] + 1),
+                                     (0, s[1]))
+            return s[0] + 1, inner
+
+        _, tri = DL.while_loop(lambda s: s[0] < h["k"], outer,
+                               (0, h["tri"]))
+        return {**h, "x": x, "y": y, "vals": vals, "tri": tri}, c + i
+
+    def counters(h):
+        z = torch.zeros((), dtype=torch.int32, device=dev)
+        return torch.stack([h["x"].sum().int(), z, z])
+
+    seg = DL.SegmentGraph(body, counters, dev)
+    c = torch.zeros((), dtype=torch.int32, device=dev)
+    b = torch.ones((2, 4), dtype=torch.int32, device=dev)
+    for step, (shift, k) in enumerate(((0, 3), (5, 1), (100, 0), (7, 4))):
+        h = {"x": torch.arange(4, device=dev, dtype=torch.int32) + shift,
+             "y": torch.zeros(4, dtype=torch.int32, device=dev),
+             "k": torch.tensor(k, dtype=torch.int32, device=dev),
+             "vals": torch.randint(0, 100, (201,), dtype=torch.int32,
+                                   device=dev),
+             "tri": torch.zeros(3, dtype=torch.int32, device=dev)}
+        TK.reset_launches()
+        want_h, want_c = body(h, c, b)
+        want_launches = TK.LAUNCHES["fused_relax_rows"]
+        assert want_launches == k
+        assert torch.equal(want_h["tri"].cpu(),
+                           torch.full((3,), k * (k - 1) // 2,
+                                      dtype=torch.int32))
+        TK.reset_launches()
+        got_h, got_c, _ = seg(h, c, b)
+        assert (seg.graph is None) == (step == 0)
+        assert TK.LAUNCHES["fused_relax_rows"] == want_launches
+        if step:
+            assert seg.launches_per_replay().get("fused_relax_rows",
+                                                 0) == k
+        assert torch.equal(got_c, want_c)
+        for key in want_h:
+            assert torch.equal(got_h[key], want_h[key]), (shift, key)
+            # the results are copies: no caller's tensor is the graph's
+            assert got_h[key] is not h[key] or key == "k"
+    assert seg.cap.nodes == 6 and seg.replays == 3
+
+
+@pytest.mark.parametrize("algo,backend", [
+    ("sssp", "cuda"), ("sssp", "cuda_chained"), ("pagerank", "cuda"),
+    ("pagerank", "cuda_chained"), ("tc", "cuda"), ("sssp", "frontier")])
+def test_fused_stream_matches_per_batch_on_card(dev, algo, backend):
+    """The fused executor against the per-batch driver on the card, three
+    times from the same start (the segment uncaptured, captured, then
+    replayed): carries and handles bit for bit, and the kernels'
+    ``LAUNCHES`` equal the per-batch run's every time; a replayed segment
+    reads the host twice."""
+    from repro_torch.algos import triangles
+    from repro_torch.core.engine import Engine
+    import warnings
+    if algo == "tc":
+        n = 1 << 10
+        rng = np.random.default_rng(0)
+        e = rng.integers(0, n, (n * 4, 2))
+        e = np.unique(np.concatenate([e, e[:, ::-1]]), axis=0)
+        e = e[e[:, 0] != e[:, 1]]
+        csr = repro_torch.build_csr(n, e, np.ones(len(e), np.int32),
+                                    device=dev)
+        ups = repro_torch.random_updates(csr, percent=2, seed=3)
+        stream = repro_torch.UpdateStream(
+            adds=np.concatenate([ups.adds, ups.adds[:, [1, 0, 2]]]),
+            dels=np.concatenate([ups.dels, ups.dels[:, ::-1]]))
+        static, step, bs = (triangles.static_tc,), triangles.stream_step, 32
+    else:
+        n, edges, w = random_graph(7, 3000, 24000)
+        csr = repro_torch.build_csr(n, edges, w, device=dev)
+        stream = repro_torch.random_updates(csr, percent=2, seed=1)
+        bs = 128
+        if algo == "sssp":
+            static, step = (sssp.static_sssp, 0), sssp.stream_step
+        else:
+            static = (pagerank.static_pr, 1e-4, 0.85, 100)
+            step = pagerank.make_stream_step(1e-4, 0.85, 100)
+    sess = repro_torch.bind_graph(csr, backend=backend,
+                                  capacity=2 * stream.num_adds, device=dev)
+    c0 = sess.call(*static)
+    eng, h0 = sess.engine, sess.handle
+
+    def launches():
+        out = {}
+        for m in (TK, TC, TS):
+            out.update({k: v for k, v in m.LAUNCHES.items() if v})
+            m.reset_launches()
+        return out
+
+    def syncs(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode(1)
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return out, sum("synchroniz" in str(x.message) for x in caught)
+
+    launches()
+    he, ce = Engine.run_stream(eng, h0, stream, bs, step, c0)
+    want = launches()
+    for i in range(3):
+        (hf, cf), n_sync = syncs(
+            lambda: eng.run_stream(h0, stream, bs, step, c0,
+                                   segment_size=64))
+        assert launches() == want, i
+        captured = [r for r in eng._stream_cache.values()
+                    if r.graph is not None]
+        assert len(captured) == (i > 0), i
+        if i == 2:
+            assert n_sync <= 2
+        for a, b in zip(DL_tensors(ce), DL_tensors(cf)):
+            assert torch.equal(a, b)
+        ga, gb = eng.handle_graph(he), eng.handle_graph(hf)
+        for f in ("alive", "w", "d_src", "d_dst", "d_w", "d_alive",
+                  "d_offsets", "overflow"):
+            assert torch.equal(getattr(ga, f), getattr(gb, f)), f
+
+
+def DL_tensors(tree):
+    from repro_torch.core import device_loop
+    return device_loop.tensors(tree)
+
+
+def test_capture_failure_raises_and_never_runs_eagerly(dev):
+    """A step that reads the host runs uncaptured at its segment's first
+    use, as every segment does; at the second use it cannot be captured:
+    the fused executor raises through the session (a kernel failure in its
+    health), nothing of that stream is applied, and no eager run finishes
+    the job."""
+    n, edges, w = random_graph(11, 500, 3000)
+    csr = repro_torch.build_csr(n, edges, w, device=dev)
+    stream = repro_torch.random_updates(csr, percent=5, seed=2)
+
+    def reads_host(engine, g, batch, props):
+        if bool(props["dist"].min() >= 0):          # a host read
+            return sssp.stream_step(engine, g, batch, props)
+        return g, props
+
+    sess = repro_torch.bind_graph(csr, backend="cuda",
+                                  capacity=4 * stream.num_adds, device=dev)
+    p0 = sess.call(sssp.static_sssp, 0)
+    p1 = sess.run_stream(stream, 64, reads_host, p0)
+    want = repro_torch.bind_graph(csr, backend="cuda",
+                                  capacity=4 * stream.num_adds, device=dev)
+    pw = want.run_stream(stream, 64, sssp.stream_step,
+                         want.call(sssp.static_sssp, 0))
+    for k in ("dist", "parent"):
+        assert torch.equal(p1[k], pw[k]), k
+    cursor = sess.stream_cursor
+    before = [t.clone() for t in DL_tensors(sess.handle)]
+    with pytest.raises(Exception):
+        sess.run_stream(stream, 64, reads_host, p1)
+    assert sess.health.kernel_failures == 1
+    assert sess.stream_cursor == cursor
+    for a, b in zip(before, DL_tensors(sess.handle)):
+        assert torch.equal(a, b)
+
+
+def test_fault_after_a_replayed_segment_leaves_the_handle_unchanged(dev):
+    """A 12-batch stream in segments of 4 on a session that has already
+    run one such stream (its segments uncaptured, captured, replayed): its
+    first segment replays the captured graph, and a fault at the
+    ``segment_scan`` seam of its second (start 4) leaves the session's
+    handle as it was before the stream, since a replay never writes a
+    handle a caller holds.  The stream run again without the fault equals
+    the per-batch driver (``Engine.run_stream``) bit for bit."""
+    from repro_torch.core.engine import Engine
+    from repro_torch.runtime import faults
+    n, edges, w = random_graph(13, 3000, 24000)
+    csr = repro_torch.build_csr(n, edges, w, device=dev)
+    bs, nb = 16, 12
+
+    def stream_of(seed):
+        ups = repro_torch.random_updates(csr, percent=2, seed=seed)
+        assert min(ups.num_adds, ups.num_dels) >= bs * nb
+        return repro_torch.UpdateStream(adds=ups.adds[:bs * nb],
+                                        dels=ups.dels[:bs * nb])
+
+    s1, s2 = stream_of(4), stream_of(5)
+    cap = 2 * (s1.num_adds + s2.num_adds)
+    sess = repro_torch.bind_graph(csr, backend="cuda", capacity=cap,
+                                  device=dev)
+    p1 = sess.run_stream(s1, bs, sssp.stream_step,
+                         sess.call(sssp.static_sssp, 0), segment_size=4)
+    runs = [r for r in sess.engine._stream_cache.values()
+            if r.graph is not None]
+    assert len(runs) == 1 and runs[0].replays == 2
+    cursor = sess.stream_cursor
+    before = [t.clone() for t in DL_tensors(sess.handle)]
+    with faults.inject("segment_scan",
+                       match=lambda ctx: ctx.get("start") == 4) as inj:
+        with pytest.raises(Exception):
+            sess.run_stream(s2, bs, sssp.stream_step, p1, segment_size=4)
+    assert inj.fired == 1 and runs[0].replays == 3
+    assert sess.stream_cursor == cursor
+    for a, b in zip(before, DL_tensors(sess.handle)):
+        assert torch.equal(a, b)
+    p2 = sess.run_stream(s2, bs, sssp.stream_step, p1, segment_size=4)
+
+    ref = repro_torch.bind_graph(csr, backend="cuda", capacity=cap,
+                                 device=dev)
+    eng = ref.engine
+    h, q = Engine.run_stream(eng, ref.handle, s1, bs, sssp.stream_step,
+                             ref.call(sssp.static_sssp, 0))
+    h, q = Engine.run_stream(eng, h, s2, bs, sssp.stream_step, q)
+    for k in ("dist", "parent"):
+        assert torch.equal(p2[k], q[k]), k
+    for a, b in zip(DL_tensors(h), DL_tensors(sess.handle)):
+        assert torch.equal(a, b)
