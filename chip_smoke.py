@@ -95,6 +95,21 @@ Phases (any failure exits non-zero):
       (static runs with sparse steps and dense chunks counted, streams
       fused): dist, parent and pr equal the ``torch`` backend's of step 4
       bit for bit.
+   h. The distributed backends, after 2g.  ``dist`` and ``dist_sharded``
+      (block partitioner) with ``DIST_SHARDS`` shards stacked on the card
+      run 2a's SSSP and 2b's PageRank through ``bind_graph(...,
+      num_shards=4).run_stream`` (fused): SSSP dist and parent bit for
+      bit against 2a's ``cuda``, PageRank within step 4's float64 bound
+      and the cuda-vs-torch limits of 2b's run; SSSP once more on the
+      degree partitioner; TC per batch on ``dist`` (``DIST_TC_SHARDS``
+      shards, 2d's graph) equal to scipy's counts; one NCCL rank
+      (``comm="group"``, a world of one) bit for bit against the stacked
+      P = 1 run; an armed DynSSSP (``SAVE_SCALE``) saved on
+      ``DIST_SHARDS`` shards, restored onto 2 and onto ``cuda`` and run
+      on, equal to the uninterrupted run.  Each window prints wall time,
+      peak memory, emax against E, one shard's bytes against one
+      DynGraph's and, for ``dist_sharded``, the halo sizes and rebuilds.
+      No kernel of the row path or the merge may launch there.
    The main paths (2a-2c, step 4, 2g) must end on their own backend with
    no failover.  The ``torch`` backend's runs (step 4) stream through the
    per-batch driver (``Engine.run_stream``), so the reference shares no
@@ -1941,7 +1956,7 @@ def check_cond(torch, args, flush, GC) -> dict:
 
 # -- phase 2g: the fused stream executor and the frontier engine --------------
 SSSP_REPLAY_SYNCS = 3          # host syncs allowed a replayed SSSP segment
-TC_DATA = {}                   # phase 2d's graph and stream, for 2g
+TC_DATA = {}              # phase 2d's graph and stream, for 2g and 2h
 
 
 def same_tree(torch, a, b, tag) -> None:
@@ -2093,7 +2108,6 @@ def fused_phase(torch, repro_torch, counts, csr, stream, paths,
         torch, counts, "tc cuda", sess.engine, sess.handle, tstream,
         triangles.stream_step, c0)
     del sess, c0
-    TC_DATA.clear()
     torch.cuda.empty_cache()
 
     clock = lambda: Timer(torch)
@@ -2117,6 +2131,216 @@ def fused_phase(torch, repro_torch, counts, csr, stream, paths,
         del fsess, props
         torch.cuda.empty_cache()
     return readings
+
+
+# -- phase 2h: the distributed backends ------------------------------------
+
+DIST_SHARDS = 4          # shards stacked on the card in 2h.1, 2h.2, 2h.5
+DIST_TC_SHARDS = 2       # shards of the TC window (2h.3)
+
+
+def dist_detail(sess, E: int, one_bytes: int) -> str:
+    """emax against E, one shard's bytes against one DynGraph's, the halo
+    sizes and rebuilds of a dist / dist_sharded session."""
+    eng, h = sess.engine, sess.handle
+    out = (f"P={eng.P} emax {int(h.src.shape[1])} of E={E} "
+           f"({int(h.src.shape[1]) / E:.3f}); per-shard bytes "
+           f"{eng.per_shard_bytes(h)} vs one DynGraph {one_bytes} "
+           f"({eng.per_shard_bytes(h) / one_bytes:.3f})")
+    if hasattr(h, "ghosts"):
+        out += (f"; halo H={int(h.ghosts.shape[1])} "
+                f"Hs={int(h.send_idx.shape[2])}; rebuilds {eng.rebuilds}")
+    return out
+
+
+def dist_phase(torch, np, repro_torch, counts, csr, stream, paths,
+               sssp_cuda, pr_cuda, pr_ref, tc_counts) -> None:
+    """Phase 2h: ``dist`` and ``dist_sharded`` on the card.  2h.1: SSSP
+    and PageRank with DIST_SHARDS shards stacked, through ``bind_graph(...)
+    .run_stream`` (the fused executor): SSSP bit for bit against 2a's
+    cuda, PageRank against the float64 reference and 2b's run.  2h.2: SSSP
+    on the degree partitioner.  2h.3: per-batch TC (dyn_tc) on 2d's graph
+    against its scipy-checked counts.  2h.4: one NCCL rank (``comm=
+    "group"``) against the stacked P = 1 run.  2h.5: an armed DynSSSP
+    saved on DIST_SHARDS shards, restored onto 2 and onto cuda, run on."""
+    import tempfile
+    from repro_torch import dsl_programs
+    from repro_torch.algos import triangles
+    t_phase = time.perf_counter()
+    silent = ROW_KERNELS + ("merge_pool_sorted",)
+    n, E, nb = csr.n, csr.num_edges, stream.num_batches(BATCH)
+    cap = 2 * stream.num_adds
+    # one DynGraph: main lanes (src, dst, w, alive), two offsets, the pool
+    one_bytes = 13 * E + 8 * (n + 1) + 13 * cap + 4
+    beta, delta, _ = PR_KNOBS
+    l1_bound = (1 + 2 * nb) * beta / (1 - delta)
+    top = np.argsort(pr_ref)[-1000:]
+
+    def run(tag, backend, algo, **opts):
+        static, step = paths[algo]
+
+        def go():
+            sess = repro_torch.bind_graph(csr, backend=backend, capacity=cap,
+                                          device=DEV, **opts)
+            with Timer(torch) as t_prep:
+                sess.handle
+            with Timer(torch) as t_static:
+                props = sess.call(*static)
+            with Timer(torch) as t_stream:
+                props = sess.run_stream(stream, BATCH, step, props)
+            return sess, props, (t_prep.s, t_static.s, t_stream.s)
+
+        (sess, props, times), _, _ = window(torch, counts, tag, go,
+                                            silent=silent)
+        TIMES[tag] = times
+        log(f"[{tag}] prepare {times[0]:.3f} s | static {times[1]:.3f} s | "
+            f"stream {times[2]:.3f} s | "
+            f"{dist_detail(sess, E, one_bytes)}")
+        return sess, props
+
+    def same_sssp(props, want, tag):
+        for k in ("dist", "parent"):
+            if not torch.equal(props[k], want[k]):
+                bad = int((props[k] != want[k]).sum())
+                raise AssertionError(f"[{tag}] SSSP {k} differs at {bad} "
+                                     f"vertices")
+
+    # 2h.1 stacked SSSP and PageRank, 2h.2 the degree partitioner
+    for backend, opts in (("dist", {}),
+                          ("dist_sharded", {"partitioner": "block"})):
+        tag = f"2h sssp {backend} P={DIST_SHARDS}"
+        sess, props = run(tag, backend, "sssp", num_shards=DIST_SHARDS,
+                          **opts)
+        same_sssp(props, sssp_cuda, tag)
+        del sess, props
+        tag = f"2h pagerank {backend} P={DIST_SHARDS}"
+        sess, props = run(tag, backend, "pagerank", num_shards=DIST_SHARDS,
+                          **opts)
+        got = props["pr"].cpu().numpy().astype(np.float64)[:n]
+        l1 = float(np.abs(got - pr_ref).sum())
+        d = (props["pr"][:n].double() - pr_cuda.double()).abs()
+        max_d, l1_d = float(d.max()), float(d.sum())
+        log(f"[{tag}] vs float64 scipy: L1 {l1:.3e} (bound {l1_bound:.3e})"
+            f"; vs 2b's cuda: max |d| {max_d:.3e}, L1 {l1_d:.3e}")
+        if not l1 <= l1_bound:
+            raise AssertionError(f"[{tag}] PageRank L1 error {l1} above "
+                                 f"its bound {l1_bound}")
+        np.testing.assert_allclose(got[top], pr_ref[top], rtol=5e-2, atol=0,
+                                   err_msg=f"[{tag}] top 1,000 vertices")
+        top_pr, mass = float(pr_cuda.max()), float(pr_cuda.double().sum())
+        if not (max_d <= 1e-6 and l1_d <= 1e-4 and max_d <= 1e-4 * top_pr
+                and l1_d <= 1e-5 * mass):
+            raise AssertionError(f"[{tag}] PageRank differs from cuda's "
+                                 f"beyond the cuda-vs-torch limits")
+        del sess, props, d
+        torch.cuda.empty_cache()
+    tag = f"2h sssp dist_sharded degree P={DIST_SHARDS}"
+    sess, props = run(tag, "dist_sharded", "sssp", num_shards=DIST_SHARDS,
+                      partitioner="degree")
+    same_sssp(props, sssp_cuda, tag)
+    log(f"[check] 2h.1-2: SSSP dist and parent on dist and dist_sharded "
+        f"(block, degree), {DIST_SHARDS} shards stacked, bit-identical to "
+        f"2a's cuda; PageRank within the float64 bound and the "
+        f"cuda-vs-torch limits")
+    del sess, props
+    torch.cuda.empty_cache()
+
+    # 2h.3 per-batch TC on 2d's graph
+    tcsr, tstream = TC_DATA["csr"], TC_DATA["stream"]
+    tnb = tstream.num_batches(BATCH)
+
+    def tc():
+        sess = repro_torch.bind_graph(tcsr, backend="dist",
+                                      num_shards=DIST_TC_SHARDS,
+                                      capacity=2 * tstream.num_adds,
+                                      device=DEV)
+        with Timer(torch) as t_static:
+            c0 = sess.call(triangles.static_tc)
+        with Timer(torch) as t_dyn:
+            c1 = sess.call(triangles.dyn_tc, tstream, BATCH, count=c0)
+        return c0, c1, (t_static.s, t_dyn.s)
+
+    tag = f"2h tc dist P={DIST_TC_SHARDS}: static_tc, dyn_tc"
+    (c0, c1, times), _, secs = window(torch, counts, tag, tc, silent=silent)
+    log(f"[{tag}] static_tc {times[0]:.3f} s, dyn_tc {times[1]:.3f} s "
+        f"({times[1] / tnb:.3f} s a batch, {tnb} batches); triangles "
+        f"{int(c0)} -> {int(c1)} on n={tcsr.n} E={tcsr.num_edges}")
+    if (int(c0), int(c1)) != (tc_counts["static"], tc_counts["final"]) or \
+            c1.dtype != torch.int32:
+        raise AssertionError(f"[{tag}] counts {int(c0)} -> {int(c1)}, "
+                             f"scipy {tc_counts}")
+    del tcsr, tstream
+    TC_DATA.clear()
+
+    # 2h.4 one NCCL rank against the stacked P = 1 run
+    import torch.distributed as tdist
+    tag = "2h sssp dist P=1 stacked"
+    _, want = run(tag, "dist", "sssp", num_shards=1, comm="stacked")
+    tdist.init_process_group("nccl", store=tdist.HashStore(), rank=0,
+                             world_size=1)
+    try:
+        tag = "2h sssp dist one NCCL rank"
+        sess, props = run(tag, "dist", "sssp", comm="group")
+        if sess.engine.comm.kind != "group":
+            raise AssertionError(f"[{tag}] did not run on the group")
+    finally:
+        tdist.destroy_process_group()
+    same_sssp(props, want, tag)
+    same_sssp(props, sssp_cuda, tag)
+    log("[check] 2h.3-4: dist TC equal to scipy's counts; one NCCL rank "
+        "bit-identical to the stacked P = 1 run and to cuda")
+    del sess, props, want
+    torch.cuda.empty_cache()
+
+    # 2h.5 elastic restore, at SAVE_SCALE in batches of SAVE_BATCH
+    sn, edges, w = repro_torch.rmat_graph(SAVE_SCALE, DEGREE, seed=0)
+    small = repro_torch.build_csr(sn, edges, w, device=DEV)
+    ups = repro_torch.random_updates(small, percent=PERCENT, seed=1)
+    batches = list(ups.batches(SAVE_BATCH, device=DEV))
+    k = len(batches) // 2
+    prog = repro_torch.compile(dsl_programs.path("sssp"))
+
+    def armed_on(bs, backend="dist", **opts):
+        sess = prog.bind(small, backend=backend, capacity=2 * ups.num_adds,
+                         device=DEV, **opts)
+        sess.run("DynSSSP", batchSize=SAVE_BATCH, src=0)
+        for b in bs:
+            sess.apply(b)
+        return sess
+
+    def elastic():
+        with tempfile.TemporaryDirectory() as d:
+            armed_on(batches[:k], num_shards=DIST_SHARDS).save(d)
+            backs = [repro_torch.restore_session(d, num_shards=2,
+                                                 device=DEV),
+                     repro_torch.restore_session(d, backend="cuda",
+                                                 device=DEV)]
+        for back in backs:
+            if not (back.armed and back.stream_cursor == k):
+                raise AssertionError("restore did not re-arm at the saved "
+                                     "batch")
+            for b in batches[k:]:
+                back.apply(b)
+        return backs
+
+    tag = "2h elastic restore"
+    backs, _, t_el = window(torch, counts, tag, elastic, silent=ROW_KERNELS)
+    full = armed_on(batches, num_shards=DIST_SHARDS)
+    for back, what in zip(backs, ("dist P=2", "cuda")):
+        for key in ("dist", "parent"):
+            if not torch.equal(back.props[key][:sn], full.props[key][:sn]):
+                raise AssertionError(f"[{tag}] restored onto {what}: "
+                                     f"{key} differs")
+    if backs[0].engine.P != 2 or backs[1].backend_name != "cuda":
+        raise AssertionError(f"[{tag}] restored onto the wrong engines")
+    log(f"[check] 2h.5: DynSSSP armed on dist P={DIST_SHARDS} (rmat "
+        f"{SAVE_SCALE}, E={small.num_edges}), saved after {k} of "
+        f"{len(batches)} batches of {SAVE_BATCH}, restored onto dist P=2 "
+        f"and onto cuda, run on: dist and parent bit-identical to the "
+        f"uninterrupted run ({t_el:.2f} s)")
+    del backs, full, small
+    torch.cuda.empty_cache()
+    log(f"[2h] distributed backends {time.perf_counter() - t_phase:.1f} s")
 
 
 def main(argv=None) -> int:
@@ -2373,8 +2597,8 @@ def main(argv=None) -> int:
     mark("cuda_chained")
 
     # 2d. triangle counting on its own graph
-    tc_phase(torch, np, repro_torch, counts, args,
-             silent=ROW_KERNELS + ("segment_sum_sorted",))
+    tc_counts = tc_phase(torch, np, repro_torch, counts, args,
+                         silent=ROW_KERNELS + ("segment_sum_sorted",))
     mark("triangle counting")
 
     # -- 4. correctness ------------------------------------------------------
@@ -2484,6 +2708,13 @@ def main(argv=None) -> int:
                 cond_rec)
     del pr_torch
     mark("fused executor, frontier")
+
+    # 2h. the distributed backends, stacked shards and one NCCL rank
+    dist_phase(torch, np, repro_torch, counts, csr, stream,
+               {"sssp": (sssp_static, sssp_step),
+                "pagerank": (pr_static, pr_step)}, sssp_cuda, pr_cuda, ref,
+               tc_counts)
+    mark("distributed backends")
 
     # -- 5. LM serving -------------------------------------------------------
     del csr, stream, post, sssp_cuda, pr_cuda, g

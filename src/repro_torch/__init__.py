@@ -14,7 +14,9 @@ hand-staged ``repro_torch.algos.{sssp,pagerank,triangles}`` through
 ``cuda``, with the flash-attention kernel, and ``torch``).  Runtime and
 serving: ``bind_graph(..., failover=True)`` (``cuda → cuda_chained →
 torch``), the chaos seams of ``repro_torch.runtime.faults``, and the
-multi-tenant ``repro_torch.serve.SessionPool``.
+multi-tenant ``repro_torch.serve.SessionPool``.  The distributed backends
+``dist`` and ``dist_sharded`` (``num_shards=P`` stacked on one device,
+or one shard a ``torch.distributed`` rank).
 """
 from repro_torch import dsl_programs
 from repro_torch.api import (CompiledProgram, GraphSession, Session,
@@ -26,9 +28,36 @@ from repro_torch.graph import (CSR, UpdateBatch, UpdateStream, build_csr,
                                random_updates, rmat_graph)
 
 __all__ = [
-    "compile", "CompiledProgram", "Session", "SessionResult",
-    "restore_session", "dsl_programs", "GraphSession", "bind_graph",
-    "props_from_numpy", "available_backends",
-    "make_engine", "register_engine", "CSR", "UpdateBatch", "UpdateStream",
-    "build_csr", "random_updates", "rmat_graph",
+    "api", "serve", "compile", "CompiledProgram", "Session",
+    "SessionResult", "PropertyView", "restore_session", "dsl_programs",
+    "GraphSession", "bind_graph", "props_from_numpy", "available_backends",
+    "make_engine", "register_engine", "SessionPool", "AdmissionError",
+    "PoolOverflowError", "KernelFailure", "DivergenceError",
+    "PoolSaturatedError", "SessionHealth", "PoolHealth", "CSR",
+    "UpdateBatch", "UpdateStream", "build_csr", "random_updates",
+    "rmat_graph",
 ]
+
+# loaded on first use (PEP 562), as repro's are: the serving layer and the
+# runtime's names
+_LAZY = {
+    "PropertyView": "repro_torch.api", "AdmissionError": "repro_torch.api",
+    "PoolOverflowError": "repro_torch.api",
+    "KernelFailure": "repro_torch.api", "DivergenceError": "repro_torch.api",
+    "SessionHealth": "repro_torch.api", "SessionPool": "repro_torch.serve",
+    "PoolSaturatedError": "repro_torch.runtime",
+    "PoolHealth": "repro_torch.runtime",
+}
+
+
+def __getattr__(name):
+    import importlib
+    if name in ("api", "serve"):
+        return importlib.import_module(f"repro_torch.{name}")
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module 'repro_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(__all__)

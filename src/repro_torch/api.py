@@ -229,6 +229,22 @@ def _example_from_spec(spec):
     return np.zeros(tuple(shape), np.dtype(dtype))
 
 
+def _fit_pad(arr, n_real: int, n_pad: int, device) -> torch.Tensor:
+    """A saved vertex array refitted to the restoring engine's padding on
+    ``device`` (dist's n_pad = block·P changes with the shard count).
+    The pad region is dead to the lowerings (they mask ``idx < n_real``),
+    so it is filled from the saved pad value when there is one, else
+    zero."""
+    arr = to_device(arr, device)
+    if arr.dim() == 0 or arr.shape[0] == n_pad:
+        return arr
+    body = arr[:n_real]
+    if n_pad == n_real:
+        return body
+    fill = arr[n_real] if arr.shape[0] > n_real else arr.new_zeros(())
+    return torch.cat([body, fill.expand(n_pad - n_real)])
+
+
 class PropertyView(Mapping):
     """Lazy view over a session's vertex properties: indexing returns the
     device tensor; ``to_host()`` / ``host(name)`` copy to numpy, sliced
@@ -512,10 +528,11 @@ class GraphSession:
         ``pack_state`` (pure data access, so it works while the old
         backend's kernels are broken) → ``state_to_csr`` (on the host) →
         ``prepare`` on the new engine.  Value-preserving; the pool layout
-        resets.  Properties stay where they are: every backend of this
-        package pads vertex arrays to n."""
+        resets.  Properties are refitted to the new engine's padding
+        (``dist``'s n_pad is a multiple of its shard count)."""
         self._ensure_prepared()
         old = self._engine
+        n = old.n_real
         tree, hmeta = old.pack_state(self._handle)
         csr, cap = state_to_csr(tree, hmeta, device=old.device)
         engine = make_engine(name, device=old.device)
@@ -525,6 +542,8 @@ class GraphSession:
         self._handle = handle
         self._backend_name = name
         self._health.backend = name
+        self._props = {k: _fit_pad(v, n, engine.n_pad, engine.device)
+                       for k, v in self._props.items()}
         self._of_base = self._sync_counters()[0]
 
     # -- divergence watchdog -------------------------------------------------
@@ -998,16 +1017,23 @@ class Session(GraphSession):
                         f"{self._backend_name!r} pool layout",
                         backend=name)
             armed_state = (arrays, armed_meta)
+        n = self._engine.n_real
         super()._migrate(name)
         # staged executables hold the old engine
         self._staged_funcs.clear()
         if armed_state is not None:
-            self._rearm(armed_state[1], armed_state[0])
+            self._rearm(armed_state[1], armed_state[0], n)
 
-    def _rearm(self, armed_meta: dict, arrays: dict) -> None:
+    def _rearm(self, armed_meta: dict, arrays: dict, n: int) -> None:
         """Re-stage an armed Batch loop on the current engine and rebuild
         its paused frame from serialized arrays (failover migration and
-        ``restore_session``)."""
+        ``restore_session``); its vertex properties are refitted to the
+        engine's padding (``n`` real vertices)."""
+        for pname, m in armed_meta["env"].items():
+            if m["kind"] == "prop" and m.get("bound") and not m["is_edge"]:
+                arrays[f"prop_{pname}"] = _fit_pad(
+                    arrays[f"prop_{pname}"], n, self._engine.n_pad,
+                    self._engine.device)
         staged = self._staged(armed_meta["func"])
         self._armed = ArmedRun.deserialize(staged, self._handle, arrays,
                                            armed_meta)
@@ -1120,10 +1146,13 @@ def restore_session(ckpt_dir, backend: Optional[str] = None,
     ``jnp`` or ``pallas``, which this package does not have: pass
     ``torch`` or ``cuda``).  Same state kind (``torch`` ↔ ``dyn``,
     ``cuda`` ↔ ``pallas``): **bit-exact**, the raw handle leaves (diff
-    pool, tombstones, ELL pack) are restored.  Another kind converts
-    through the alive-edge list and re-``prepare``s (value-preserving,
-    pool layout reset).  An armed Batch loop resumes where it paused;
-    the prologue is not re-run.  ``backend_opts`` (``device=`` among
+    pool, tombstones, ELL pack) are restored.  The dist backends
+    (``dist``, ``dist_sharded``, kind ``dist``) re-partition their
+    canonical edge list onto the restoring engine, so a session saved on
+    P shards comes back on ``num_shards=M``; the properties are refitted
+    to its padding.  Another kind converts through the alive-edge list
+    and re-``prepare``s (value-preserving, pool layout reset).  An armed
+    Batch loop resumes where it paused; the prologue is not re-run.  ``backend_opts`` (``device=`` among
     them) go to the engine; ``engine=`` restores onto an engine already
     built instead."""
     if step is None:
@@ -1154,8 +1183,13 @@ def restore_session(ckpt_dir, backend: Optional[str] = None,
                                      csr=None)
     else:
         sess = GraphSession(engine, csr=None)
+    # edge-lane state survives only where the pool layout does: a dist
+    # restore re-partitions even within its kind
+    lanes_ok = exact and hmeta["kind"] != "dist"
+
     sess._handle = handle
-    sess._props = {k: to_device(v, engine.device)
+    n = int(meta["n"])
+    sess._props = {k: _fit_pad(v, n, engine.n_pad, engine.device)
                    for k, v in tree.get("props", {}).items()}
     sess._cursor = int(meta["cursor"])
 
@@ -1163,15 +1197,15 @@ def restore_session(ckpt_dir, backend: Optional[str] = None,
     if armed_meta is not None:
         arrays = dict(tree.get("armed") or {})
         for name, m in armed_meta["env"].items():
-            # edge-lane state survives only where the pool layout does
             if m["kind"] == "prop" and m.get("bound") and m["is_edge"] \
-                    and not exact:
+                    and not lanes_ok:
                 raise ValueError(
                     f"armed edge property {name!r} is bound to the "
                     f"saved pool layout; it cannot survive a "
-                    f"cross-backend restore — restore onto the saving "
-                    f"backend's state kind, or disarm before saving")
-        sess._rearm(armed_meta, arrays)
+                    f"cross-backend restore or a dist re-mesh — restore "
+                    f"onto the saving backend's state kind, or disarm "
+                    f"before saving")
+        sess._rearm(armed_meta, arrays, n)
     # one triple read pins the overflow base for the restored pool
     sess._of_base = sess._sync_counters()[0]
     return sess

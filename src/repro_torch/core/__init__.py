@@ -5,7 +5,7 @@ importing the package loads no engine.
 """
 
 __all__ = [
-    "Engine", "TorchEngine", "CudaEngine", "FrontierEngine",
+    "Engine", "TorchEngine", "CudaEngine", "FrontierEngine", "DistEngine",
     "register_engine", "make_engine", "engine_factory",
     "available_backends", "UnknownBackendError", "DuplicateBackendError",
     "registry",
@@ -16,6 +16,7 @@ _LAZY = {
     "TorchEngine": ("repro_torch.core.engine", "TorchEngine"),
     "CudaEngine": ("repro_torch.core.cuda_engine", "CudaEngine"),
     "FrontierEngine": ("repro_torch.core.frontier_engine", "FrontierEngine"),
+    "DistEngine": ("repro_torch.core.dist", "DistEngine"),
     "register_engine": ("repro_torch.core.registry", "register_engine"),
     "make_engine": ("repro_torch.core.registry", "make_engine"),
     "engine_factory": ("repro_torch.core.registry", "engine_factory"),

@@ -55,10 +55,11 @@ class CudaHandle:
 
 @dataclasses.dataclass(frozen=True)
 class StagedAdd:
-    """A batch staged by ``CudaEngine.update_stacked``: the graph after
-    its adds, and the handle (graph and pack) after its deletes."""
+    """A batch staged by ``update_stacked`` (``CudaEngine``,
+    ``FrontierEngine``): the graph after its adds, and the handle (graph
+    and pack) after its deletes."""
     g: DynGraph
-    pre: CudaHandle
+    pre: object
 
 
 class CudaEngine(TorchEngine):

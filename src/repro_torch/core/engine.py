@@ -433,17 +433,23 @@ def dyn_from_state(tree: Dict[str, Any], n: int, device) -> DynGraph:
 
 def state_to_csr(tree: Dict[str, Any], meta: dict,
                  device=None) -> Tuple[CSR, int]:
-    """Collapse a packed state of kind 'dyn', 'pallas' or 'frontier' to
-    ``(CSR, diff_capacity)``: the alive edge set survives exactly, the
-    pool layout resets."""
+    """Collapse a packed state of kind 'dist', 'dyn', 'pallas' or
+    'frontier' to ``(CSR, diff_capacity)``: the alive edge set survives
+    exactly, the pool layout resets."""
     kind, n = meta["kind"], meta["n"]
-    if kind not in ("dyn", "pallas", "frontier"):
+    if kind == "dist":
+        src, dst, w = (np.asarray(tree[k]) for k in ("src", "dst", "w"))
+        cap = int(meta["diff_capacity"])
+    elif kind in ("dyn", "pallas", "frontier"):
+        g = dyn_from_state(tree if kind == "dyn" else tree["g"], n, "cpu")
+        es, ed, ew, ea = (x.numpy() for x in g.edge_arrays())
+        src, dst, w = es[ea], ed[ea], ew[ea]
+        cap = g.diff_capacity
+    else:
         raise ValueError(f"unknown packed-state kind {kind!r}")
-    g = dyn_from_state(tree if kind == "dyn" else tree["g"], n, "cpu")
-    es, ed, ew, ea = (x.numpy() for x in g.edge_arrays())
-    edges = np.stack([es[ea], ed[ea]], axis=1)
-    return build_csr(n, edges, ew[ea], device=device), \
-        max(g.diff_capacity, 1)
+    edges = np.stack([src, dst], axis=1) if len(src) else \
+        np.zeros((0, 2), np.int64)
+    return build_csr(n, edges, w, device=device), max(cap, 1)
 
 
 def props_from_numpy(props: Dict[str, Any], device=None) -> Props:

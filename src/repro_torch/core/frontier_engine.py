@@ -36,6 +36,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core import device_loop
+from repro_torch.core.cuda_engine import StagedAdd
 from repro_torch.core.engine import (Collectives, Props, TorchEngine,
                                      _StreamView, dyn_from_state, dyn_state)
 from repro_torch.core.ir import EdgeSweep
@@ -44,8 +45,8 @@ from repro_torch.graph.csr import CSR, INT
 from repro_torch.graph.diffcsr import DynGraph
 from repro_torch.graph.updates import UpdateBatch
 from repro_torch.kernels.ell import (Ell, ell_apply_add, ell_apply_del,
-                                     ell_from_state, ell_state,
-                                     pack_push_ell)
+                                     ell_from_state, ell_revive, ell_state,
+                                     pack_push_ell, pool_moved)
 from repro_torch.runtime import faults as _faults
 
 DENSE_CHUNK = 8
@@ -131,6 +132,28 @@ class FrontierEngine(TorchEngine):
                              slot_value=batch.add_dst, repack=self._repack,
                              branch=device_loop.cond)
         return FrontierHandle(g=g, push=push)
+
+    def update_stacked(self, h: FrontierHandle, batch: UpdateBatch,
+                       mapped: bool = True):
+        """``update_add``'s host branch left to the caller (the serving
+        pool reads a group's flags in one sync): deletes first, then the
+        adds into the graph; ``repack`` is the pool-moved flag."""
+        h1 = self.update_del(h, batch)
+        g = TorchEngine.update_add(self, h1.g, batch)
+        return (StagedAdd(g=g, pre=h1), diffcsr.pool_counters(g),
+                pool_moved(h1.g, g))
+
+    def finish_stacked(self, staged: StagedAdd, batch: UpdateBatch,
+                       repack: bool) -> FrontierHandle:
+        """A moved pool rebuilds the push pack; otherwise the revivals,
+        resolved against the pre-add graph, are patched in place (push
+        slots hold destinations)."""
+        if repack:
+            return self._handle(staged.g)
+        push = ell_revive(staged.pre.push, staged.pre.g, batch.add_src,
+                          batch.add_dst, batch.add_w, batch.add_mask,
+                          slot_value=batch.add_dst)
+        return FrontierHandle(g=staged.g, push=push)
 
     def batch_edge_flags(self, h: FrontierHandle, qs, qd, mask):
         return super().batch_edge_flags(h.g, qs, qd, mask)

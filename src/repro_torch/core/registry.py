@@ -10,7 +10,12 @@ Built-ins are registered by module path and imported on first use:
 * ``cuda_chained`` — the same engine on the per-op kernel chain
   (:func:`~repro_torch.core.cuda_engine.CudaChainedEngine`);
 * ``frontier`` — :class:`~repro_torch.core.frontier_engine.FrontierEngine`,
-  direction-optimised sparse steps over a push ELL (tensor ops only).
+  direction-optimised sparse steps over a push ELL (tensor ops only);
+* ``dist`` — :class:`~repro_torch.core.dist.DistEngine`, vertices
+  block-owned over P shards (stacked on one device, or one shard a
+  ``torch.distributed`` rank);
+* ``dist_sharded`` — :class:`~repro_torch.shard.engine.ShardedEngine`,
+  the graph itself partitioned, with halo exchange.
 
 ``register_engine`` plugs in more.  ``shared_engine`` hands the serving
 pool one engine per (backend, scope, options); ``failover_chain`` names
@@ -43,6 +48,8 @@ _BUILTIN_PATHS: Dict[str, str] = {
     "cuda": "repro_torch.core.cuda_engine:CudaEngine",
     "cuda_chained": "repro_torch.core.cuda_engine:CudaChainedEngine",
     "frontier": "repro_torch.core.frontier_engine:FrontierEngine",
+    "dist": "repro_torch.core.dist:DistEngine",
+    "dist_sharded": "repro_torch.shard.engine:ShardedEngine",
 }
 
 _FACTORIES: Dict[str, EngineFactory] = {}
@@ -113,28 +120,29 @@ _SHARED_ENGINES: Dict[Tuple, Engine] = {}
 _SHARED_LOCK = threading.Lock()
 
 
-def _device_count() -> int:
-    """Process-wide card count (a monkeypatch seam for the mesh-key
-    tests)."""
-    import torch
-    return torch.cuda.device_count()
+def _world_size() -> int:
+    """The default process group's world size, 1 without one (a
+    monkeypatch seam for the mesh-key tests)."""
+    import torch.distributed as tdist
+    if tdist.is_available() and tdist.is_initialized():
+        return tdist.get_world_size()
+    return 1
 
 
 def _mesh_token(name: str, options: Dict[str, Any]):
     """Extra shared-key component for mesh-bound engines (a factory with
-    a true ``mesh_scoped`` attribute): the shard count the factory would
-    resolve, so a pool never hands a tenant an engine built for another
-    device set.  No engine of this package is mesh-scoped yet."""
+    a true ``mesh_scoped`` attribute, such as ``dist`` and
+    ``dist_sharded``): the shard count the factory would resolve, so a
+    pool never hands a tenant an engine built for another shard count.
+    That is ``num_shards`` when given, else the default process group's
+    world size, else 1."""
     try:
         factory = engine_factory(name)
     except UnknownBackendError:
         return None
     if not getattr(factory, "mesh_scoped", False):
         return None
-    shards = options.get("num_shards")
-    if not shards:
-        devs = options.get("devices")
-        shards = len(devs) if devs is not None else _device_count()
+    shards = options.get("num_shards") or _world_size()
     return ("mesh", int(shards))
 
 
@@ -167,6 +175,8 @@ DEFAULT_CHAIN: Dict[str, tuple] = {
     "cuda": ("cuda_chained", "torch"),
     "cuda_chained": ("torch",),
     "frontier": ("torch",),
+    "dist": ("torch",),
+    "dist_sharded": ("dist", "torch"),
 }
 
 

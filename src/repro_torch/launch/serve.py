@@ -113,7 +113,7 @@ def serve(args) -> dict:
             "decode_s": t_decode}
 
 
-GRAPH_BACKENDS = ("cuda", "cuda_chained", "torch")
+GRAPH_BACKENDS = ("cuda", "cuda_chained", "torch", "frontier")
 
 
 def serve_graphs(args) -> dict:

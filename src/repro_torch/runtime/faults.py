@@ -30,7 +30,9 @@ Named seams (instrumented call sites):
   * ``kernel_launch``    — ``CudaEngine.update_add`` (above the
                            fused/chained branch) and the kernelized
                            sweep dispatch; ctx ``engine``, ``fused``,
-                           ``op`` ("update_add" or "sweep")
+                           ``op`` ("update_add" or "sweep"); the dist
+                           engines' sweep and update_add dispatch (ctx
+                           ``engine`` "dist" / "dist_sharded", ``op``)
   * ``pool_merge``       — host-side diff-pool grow/merge
                            (``TorchEngine.grow``)
   * ``checkpoint_write`` — every commit-protocol point in ckpt.save

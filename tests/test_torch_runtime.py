@@ -556,6 +556,26 @@ def test_run_elastic_session_backs_off(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the public names of the package roots
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("module", ("", ".runtime", ".algos"))
+def test_public_names_match_repro(module):
+    """``repro_torch``, ``repro_torch.runtime`` and ``repro_torch.algos``
+    export every name ``repro``'s do, and each resolves."""
+    import importlib
+    port = importlib.import_module("repro_torch" + module)
+    ref = importlib.import_module("repro" + module)
+    assert set(ref.__all__) <= set(port.__all__), \
+        sorted(set(ref.__all__) - set(port.__all__))
+    for name in port.__all__:
+        assert getattr(port, name) is not None, name
+    if module == ".algos":
+        assert sorted(port.STREAM_STEPS) == sorted(ref.STREAM_STEPS)
+        assert port.STREAM_STEPS["sssp"] is port.sssp.stream_step
+
+
+# ---------------------------------------------------------------------------
 # the failover cases against repro's (last: repro's thread runs meanwhile)
 # ---------------------------------------------------------------------------
 

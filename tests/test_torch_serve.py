@@ -1,14 +1,14 @@
 """The port's serving pool on the CPU, held against ``repro``'s.
 
 The same tenants and ΔG streams go through ``repro_torch.serve.SessionPool``
-(on ``torch`` and on ``cuda``, whose kernels run their plain versions
-here) and through ``repro.serve.SessionPool`` on ``jnp`` (the Pallas
+(on ``torch``, on ``cuda``, whose kernels run their plain versions
+here, and on ``frontier``) and through ``repro.serve.SessionPool`` on ``jnp`` (the Pallas
 pool in interpret mode is too slow for a test), in each batch mode: every
 tenant's graph arrays bit for bit (the ``cuda`` pool's graph beside its
-ELL pack), armed tenants' ``dist``, the ``stats()`` snapshot, and the
-dead-letter records under ``reject`` and ``shed``.  The ``cuda`` pool
-also equals solo ``cuda`` sessions fed the same batches, ELL pack and
-all.  The batched merge's plain version is held against the solo one,
+ELL pack or push pack), armed tenants' ``dist``, the ``stats()``
+snapshot, and the dead-letter records under ``reject`` and ``shed``.  The
+``cuda`` and ``frontier`` pools also equal solo sessions fed the same
+batches, packs and all.  The batched merge's plain version is held against the solo one,
 and that against ``repro``'s Pallas merge in interpret mode.  ``repro``'s
 pools run on worker threads started at the module's first test."""
 import concurrent.futures
@@ -32,6 +32,9 @@ from repro_torch.serve import (BATCH_MODES, MegaBatcher, SessionPool,
 
 TENANTS, ARMED, BS, TICKS = 6, 2, 8, 2
 MODES = ("vmap", "scan", "off")
+# frontier's update_stacked leaves the push pack's repack to the pool's
+# one read, so it runs in every mode as the reference's does
+POOL_BACKENDS = ("torch", "cuda", "frontier")
 
 
 @pytest.fixture(autouse=True)
@@ -184,10 +187,10 @@ def ref_runs():
 @pytest.fixture(scope="module")
 def port_runs():
     return {(b, m): run_pool(True, b, m)
-            for b in ("torch", "cuda") for m in MODES}
+            for b in POOL_BACKENDS for m in MODES}
 
 
-@pytest.mark.parametrize("backend", ("torch", "cuda"))
+@pytest.mark.parametrize("backend", POOL_BACKENDS)
 def test_modes_agree_and_count(backend, port_runs):
     """Every mode leaves every tenant in the same state, and in the
     batched modes every solo run outside the armed tenants is named."""
@@ -208,21 +211,20 @@ def test_modes_agree_and_count(backend, port_runs):
     assert runs["off"]["solo_runs"] == []
 
 
-def test_cuda_pool_equals_solo_sessions(port_runs):
-    """The ``cuda`` pool against solo ``cuda`` sessions fed the same
-    batches: graph and ELL pack, bit for bit."""
+def _pool_equals_solo(port_runs, backend):
     n, e, w = _edges()
     streams = _streams()
     csr = repro_torch.build_csr(n, e, w, device="cpu")
     prog = repro_torch.compile(dsl_programs.path("sssp"))
-    got = port_runs[("cuda", "vmap")]["tenants"]
+    got = port_runs[(backend, "vmap")]["tenants"]
     for t in range(TENANTS):
         cap = 8 if t >= TENANTS - 2 else "auto"
         if t < ARMED:
-            solo = prog.bind(csr, backend="cuda", capacity=cap, device="cpu")
+            solo = prog.bind(csr, backend=backend, capacity=cap,
+                             device="cpu")
             solo.run("DynSSSP", batchSize=BS, src=0)
         else:
-            solo = repro_torch.bind_graph(csr, backend="cuda", capacity=cap,
+            solo = repro_torch.bind_graph(csr, backend=backend, capacity=cap,
                                           device="cpu")
         for i in range(TICKS):
             solo.apply(streams[t].batch(i, BS, device="cpu"))
@@ -231,6 +233,19 @@ def test_cuda_pool_equals_solo_sessions(port_runs):
         for k in want:
             np.testing.assert_array_equal(got[t]["state"][k], want[k],
                                           err_msg=f"t{t}{k}")
+
+
+def test_cuda_pool_equals_solo_sessions(port_runs):
+    """The ``cuda`` pool against solo ``cuda`` sessions fed the same
+    batches: graph and ELL pack, bit for bit."""
+    _pool_equals_solo(port_runs, "cuda")
+
+
+def test_frontier_pool_equals_solo_sessions(port_runs):
+    """The ``frontier`` pool in ``vmap`` mode (its ``update_stacked`` /
+    ``finish_stacked``) against solo ``frontier`` sessions: graph and push
+    pack, bit for bit."""
+    _pool_equals_solo(port_runs, "frontier")
 
 
 # ---------------------------------------------------------------------------
@@ -404,13 +419,16 @@ def test_mesh_token_keys_mesh_scoped_factories(monkeypatch):
 
     t_registry.register_engine("meshy", Meshy, overwrite=True)
     try:
-        monkeypatch.setattr(t_registry, "_device_count", lambda: 4)
+        # without num_shards a mesh-scoped engine takes the default
+        # process group's world size (1 without a group)
+        assert t_registry._mesh_token("meshy", {}) == ("mesh", 1)
+        monkeypatch.setattr(t_registry, "_world_size", lambda: 4)
         assert t_registry._mesh_token("meshy", {}) == ("mesh", 4)
         assert t_registry._mesh_token("meshy", {"num_shards": 2}) == \
             ("mesh", 2)
         assert t_registry._mesh_token("torch", {}) is None
         d1 = t_registry.shared_engine("meshy", scope=(None, 48))
-        monkeypatch.setattr(t_registry, "_device_count", lambda: 8)
+        monkeypatch.setattr(t_registry, "_world_size", lambda: 8)
         assert t_registry.shared_engine("meshy", scope=(None, 48)) is not d1
     finally:
         t_registry.unregister_engine("meshy")
@@ -463,7 +481,7 @@ def test_serve_graph_entry_point_on_the_cpu(capsys):
 # meanwhile)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("backend", ("torch", "cuda"))
+@pytest.mark.parametrize("backend", POOL_BACKENDS)
 @pytest.mark.parametrize("mode", MODES)
 def test_pool_matches_repro(backend, mode, port_runs, ref_runs):
     got, want = port_runs[(backend, mode)], ref_runs.result()[mode]
@@ -471,9 +489,10 @@ def test_pool_matches_repro(backend, mode, port_runs, ref_runs):
     for t in range(TENANTS):
         g, r = got["tenants"][t], want["tenants"][t]
         assert g["cursor"] == r["cursor"]
-        # the cuda pool packs {"g": DynGraph, "ell": ...}; jnp the DynGraph
+        # the cuda pool packs {"g": DynGraph, "ell": ...}, the frontier
+        # pool {"g": ..., "push": ...}; jnp the DynGraph
         state = g["state"]
-        if backend == "cuda":
+        if backend != "torch":
             state = {k[len("/g"):]: v for k, v in state.items()
                      if k.startswith("/g/")}
         assert sorted(state) == sorted(r["state"])
