@@ -173,6 +173,38 @@ Phases (any failure exits non-zero):
    launch it.  With ``--profile`` the prefill and decode run under
    torch.profiler, and the copies around the kernel (``repeat_kv`` and
    the head transposes in and out) are timed at the prefill's shapes.
+   The kernel also runs ``WINDOW_FLASH_CASES`` (a window of 1 to past S,
+   on the tensor cores and the CUDA cores, rows whose first KV tile is
+   wholly masked): every output finite, within the limits above.
+   b. gemma2-9b at full width and depth (42 layers, 21 local ones windowed
+      to 4,096 keys, dh 256, softcaps 50 and 30; 9.24 B parameters,
+      bf16): 2 prompts of 7,168 tokens, which must launch
+      ``flash_attention`` 42 times (windowed and global in turn, on the
+      CUDA cores), then 31 decode steps, then a warm prefill and 31
+      ``long_mode`` decode steps (the global layers windowed too), none of
+      which launches; times, peak memory, tokens in range.  Every launch
+      against the plain version on its own q, k, v (``BF16_REL``); the
+      logits against the ``torch`` backend's and against the plain
+      version in the kernel's place, each within ``LM_YARD_MEAN`` /
+      ``LM_YARD_MAX`` times the same reference against itself in another
+      block order (see the limits' comment).
+   c. whisper-large-v3 at full size (32 encoder layers over 1,500 frames
+      drawn from a seeded generator, 32 decoder layers of self-attention
+      and cross-attention + MLP): 4 prompts of 416 tokens, 64 flash
+      launches a prefill (32 not causal in the encoder, on the tensor
+      cores, then 32 causal), 31 decode steps whose cross-attention reads
+      the raw source (the reference's ``serve_step`` does); the checks of
+      phase 5 with its limits.
+   Each of the three warm prefills times its flash launches by CUDA
+   events around each (their sum and share of the prefill).
+   Then the kernel is timed at the slice's shapes beside its bound and
+   plain version: gemma2's global and windowed prefill attention beside
+   ``flex_attention`` (compiled, with the softcap as its ``score_mod``
+   and a causal or windowed block mask; SDPA causal without softcap
+   stands beside it as a named yardstick of another function) and
+   whisper's encoder attention beside SDPA.  Each library call is held
+   to the plain version as the kernel is; the records go under
+   ``shapes`` in the flash kernel's JSON record.
 
 The last two lines are the kernels' JSON record and the device record.
 """
@@ -201,6 +233,15 @@ TENSOR_BF16_OPS_PER_S = 989e12  # H100 SXM bf16 tensor cores, dense
 # LM serving: starcoder2-7b at full width and depth, 4 prompts of 2,048
 # tokens, 32 greedy tokens
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "starcoder2-7b", 4, 2048, 32
+# windowed attention (phase 5b): gemma2-9b at full width and depth, its
+# local layers windowed to 4,096 keys; 2 prompts of 7,168 tokens (longer
+# than the window, a multiple of the reference's 1,024-key block) and 32
+# greedy tokens: 7,200 positions, inside its published 8,192
+WIN_ARCH, WIN_BATCH, WIN_PROMPT, WIN_GEN = "gemma2-9b", 2, 7168, 32
+# an encoder and cross-attention (phase 5c): whisper-large-v3 at full
+# size, its encoder over 1,500 frames; 4 prompts of 416 tokens and 32
+# greedy tokens: 448 positions, its published max_target_positions
+ENC_ARCH, ENC_BATCH, ENC_PROMPT, ENC_GEN = "whisper-large-v3", 4, 416, 32
 L2_FLUSH_BYTES = 256 << 20
 HOST_LEAD_CYCLES = 500_000      # ~0.25 ms at the H100's 1.98 GHz
 DEV = "cuda"
@@ -808,6 +849,23 @@ FLASH_CASES = [  # shape, dtype, causal, softcap, atol, rtol
     ((3, 100, 128), "bfloat16", False, None, 3e-2, 0.0),   # under one tile
     ((2, 256, 128), "bfloat16", True, 30.0, 3e-2, 0.0),
 ]
+# the window (causal only), on both kernels: shape, dtype, window,
+# softcap, atol, rtol.  W = 128 and 127 at S = 640 leave the last rows of
+# a 128-row q tile their whole first KV tile masked (the tensor-core
+# kernel's NaN hazard), W = 127 the same for the CUDA cores' 16-row tiles
+# of 32 keys; with W = 127 or 200 a q tile's lower edge spans two KV
+# tiles, and at W = 200 and S = 600 the q tile from row 384 has its second
+# lower-edge tile below the diagonal one (rows 384-511 need keys of tile
+# 2 masked); W >= S masks nothing more than causal does.
+WINDOW_FLASH_CASES = [
+    ((2, 640, 128), "bfloat16", 128, None, 3e-2, 0.0),
+    ((2, 600, 128), "bfloat16", 200, 30.0, 3e-2, 0.0),
+    ((2, 300, 64), "bfloat16", 1, None, 3e-2, 0.0),
+    ((2, 640, 64), "bfloat16", 127, None, 3e-2, 0.0),
+    ((2, 300, 256), "bfloat16", 127, 50.0, 3e-2, 0.0),
+    ((2, 300, 128), "float32", 127, None, 2e-5, 0.0),
+    ((2, 300, 256), "float32", 300, 30.0, 1e-5, 1e-4),
+]
 # cuda vs torch prefill logits at full depth.  The backends differ only
 # in prefill attention: the kernel keeps a float32 accumulator, the
 # reference's chunked schedule a bf16 one, and 32 layers carry that bf16
@@ -847,15 +905,35 @@ def bf16_rel(FA, got, want, q, k, v, **kw) -> tuple:
     return err
 
 
-def prefill_with(model, prompts, FA, attend):
+def prefill_with(model, prompts, FA, attend, src=None):
     """The model's prefill with ``attend`` in the flash kernel's place
     (the model reaches the kernel through the module)."""
     real = FA.flash_attention
     FA.flash_attention = attend
     try:
-        return model.prefill_step(prompts)[0]
+        return model.prefill_step(prompts, src)[0]
     finally:
         FA.flash_attention = real
+
+
+def init_count(cfg) -> int:
+    """The parameters the reference's ``init_params`` makes for an
+    attention + MLP arch.  ``ArchConfig.param_count`` leaves out the norm
+    scales (``ln``, gemma2's ``post_ln``, the final and encoder norms) and
+    counts an xattn gate projection that ``init_attn`` never makes."""
+    D, H, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.dh
+    attn = 2 * D * H * dh + 2 * D * kv * dh + D
+    if cfg.qkv_bias:
+        attn += H * dh + 2 * kv * dh
+    if cfg.attn_softcap is not None:
+        attn += D
+    mlp = 3 * D * cfg.d_ff + D
+    total = cfg.vocab * D * (1 if cfg.tie_embeddings else 2) + D
+    total += cfg.repeat * sum(attn + (mlp if s["ffn"] == "mlp" else 0)
+                              for s in cfg.pattern)
+    if cfg.enc_layers:
+        total += cfg.enc_layers * (attn + mlp) + D
+    return total
 
 
 def check_flash(torch, args, flush, FA, launches) -> dict:
@@ -885,6 +963,26 @@ def check_flash(torch, args, flush, FA, launches) -> dict:
         if i == 0:
             prefill_qkv = (q, k, v)
         del got, want
+    for shape, dt, window, cap, atol, rtol in WINDOW_FLASH_CASES:
+        q, k, v = (torch.randn(shape, generator=gen, device=DEV).to(
+            getattr(torch, dt)) for _ in range(3))
+        kw = dict(causal=True, softcap=cap, window=window)
+        got = FA.flash_attention(q, k, v, **kw)
+        want = FA.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        rel = ""
+        try:
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError("an output is not finite")
+            err = close_enough(torch, got, want, atol, rtol)
+            if dt == "bfloat16":
+                ratio, norm, ulps = bf16_rel(FA, got, want, q, k, v, **kw)
+                rel = f"; {ratio:.3f} of the elementwise limit"
+        except AssertionError as exc:
+            raise AssertionError(f"flash_attention {shape} {dt} window "
+                                 f"{window}: {exc}") from None
+        log(f"[flash] {shape} {dt} window={window} softcap={cap}: max abs "
+            f"err {err:.3e} (atol {atol}, rtol {rtol}){rel}, all finite")
     q, k, v = prefill_qkv
     BH, S, dh = q.shape
     # the causal half of 4 * S^2 * dh * BH, on the bf16 tensor cores
@@ -939,61 +1037,13 @@ def attention_copies_ms(torch, args, cfg) -> float:
 def lm_phase(torch, args, counts, FA) -> dict:
     """starcoder2-7b served on the cuda backend: prefill, decode, the
     torch backend's prefill on the same weights, then the kernel check."""
-    from repro_torch.launch import serve
-    clock = lambda: Timer(torch)
-    ns = serve.parser().parse_args(
-        ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
-         str(LM_PROMPT), "--gen", str(LM_GEN), "--seed", "0"])
     B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
-    torch.cuda.reset_peak_memory_stats()
-    with clock() as t_init:
-        model, prompts = serve.build(ns)
+    model, prompts = build_lm(torch, LM_ARCH, B, P, G)
     cfg = model.cfg
-    n_params = sum(p.numel() for p in model.parameters())
-    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
-    norms = (2 * cfg.n_layers + 1) * cfg.d_model
-    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads / {cfg.n_kv} kv, dh {cfg.dh}, d_ff "
-        f"{cfg.d_ff}, vocab {cfg.vocab} | {n_params:,} parameters "
-        f"({cfg.param_count():,} by param_count + {norms:,} norm scales), "
-        f"{n_bytes / 1e9:.3f} GB {model.dtype} | init {t_init.s:.2f} s")
-    if n_params != cfg.param_count() + norms or model.backend != "cuda":
-        raise AssertionError("the model is not the full starcoder2-7b on "
-                             "the cuda backend")
-
-    counts.reset()
-    with clock() as t_cold:
-        logits, caches = serve.prefill(model, prompts, P + G)
-    pre = counts.read()
-    WINDOWS["lm prefill"] = pre
-    if pre["flash_attention"] != cfg.n_layers:
-        raise AssertionError(f"flash_attention launched "
-                             f"{pre['flash_attention']} times in a prefill "
-                             f"of {cfg.n_layers} layers")
-    require(pre, silent=[k for k in pre if k != "flash_attention"])
-    counts.reset()
-    with clock() as t_dec:
-        toks = serve.decode(model, logits, caches, P, G)
-    dec = counts.read()
-    WINDOWS["lm decode"] = dec
-    require(dec, silent=list(dec))
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    if toks.shape != (B, G) or not bool(((toks >= 0) & (toks < cfg.vocab))
-                                        .all()):
-        raise AssertionError(f"decoded tokens out of range: {toks}")
-    del caches
-    with clock() as t_warm:
-        again, caches = serve.prefill(model, prompts, P + G)
-    del caches
-    log(f"[lm] prefill B={B} P={P}: cold {t_cold.s:.3f} s, warm "
-        f"{t_warm.s:.3f} s ({B * P / t_warm.s:.0f} tok/s) | decode {G - 1} "
-        f"steps {t_dec.s:.3f} s ({t_dec.s / (G - 1) * 1e3:.2f} ms/step, "
-        f"{B * (G - 1) / t_dec.s:.1f} tok/s) | peak {peak:.2f} GiB | "
-        f"launches: prefill { {k: v for k, v in pre.items() if v} }, "
-        f"decode { {k: v for k, v in dec.items() if v} } | warm vs cold "
-        f"logits max |d| {float((again - logits).abs().max()):.3e}")
-
+    logits = serve_timed(torch, counts, FA, model, prompts, None, P, G,
+                         "lm", cfg.n_layers, long_mode=False)
     if args.profile:
+        from repro_torch.launch import serve
         logits_p, caches = profile_window(
             torch, "lm prefill (warm)",
             lambda: serve.prefill(model, prompts, P + G))
@@ -1007,81 +1057,435 @@ def lm_phase(torch, args, counts, FA) -> dict:
 
     model.backend = "torch"
     counts.reset()
-    with clock() as t_ref:
-        ref, caches = model.prefill_step(prompts)
+    with Timer(torch) as t_ref:
+        ref = model.prefill_step(prompts)[0]
     model.backend = "cuda"
     require(counts.read(), silent=["flash_attention"])
-    del caches
-    d = (logits - ref).abs()
-    max_d, std = float(d.max()), float(ref.std())
-    top1 = int((logits.argmax(-1) == ref.argmax(-1)).sum())
-    log(f"[lm] cuda vs torch prefill logits: max |d| {max_d:.4f}, mean |d| "
-        f"{float(d.mean()):.4f} (logit std {std:.4f}, max "
-        f"{float(ref.abs().max()):.4f}; limit {LM_LOGIT_TOL} std = "
-        f"{LM_LOGIT_TOL * std:.4f}) | top-1 agrees on {top1} of {B} rows | "
-        f"torch backend prefill {t_ref.s:.3f} s | first tokens "
-        f"{toks[:, :8].tolist()}")
-    if not max_d <= LM_LOGIT_TOL * std:
-        raise AssertionError(f"cuda and torch prefill logits differ by "
-                             f"{max_d} > {LM_LOGIT_TOL} * std {std}")
+    log(f"[lm] torch backend prefill {t_ref.s:.3f} s")
+    logits_against("lm", logits, ref, "torch")
+    del ref
+    # the kernel's contract on the main path's own inputs, then end to end
+    # with the plain version in the kernel's place, beside the plain
+    # version against itself over 256-key KV blocks (its sums in another
+    # order)
+    kinds = layer_checks(torch, FA, model, prompts, None, "lm")
+    if kinds != [(True, None)] * cfg.n_layers:
+        raise AssertionError(f"[lm] flash launches {kinds}, expected "
+                             f"{cfg.n_layers} causal ones")
+    counts.reset()
+    plain = prefill_with(model, prompts, FA, FA.flash_attention_plain)
+    plain256 = prefill_with(model, prompts, FA, functools.partial(
+        FA.flash_attention_plain, bk=PLAIN_REORDERED))
+    require(counts.read(), silent=["flash_attention"])
+    logits_against("lm", logits, plain, "plain attention", yard=plain256,
+                   plain_mean=True)
+    del model, logits, plain, plain256, prompts
+    torch.cuda.empty_cache()
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
+    return check_flash(torch, args, flush, FA,
+                       WINDOWS["lm prefill"]["flash_attention"])
 
-    # the kernel's contract on the main path's own inputs: each layer's
-    # launch against the plain version on the same q, k, v; beside it the
-    # plain version over 64-key blocks (the kernel's tiling) against the
-    # same, for scale
-    layer_err, layer_ref = [], []
+
+# Phases 5b and 5c: gemma2-9b (windowed attention, long_mode decode) and
+# whisper-large-v3 (an encoder, cross-attention), each at full width and
+# depth after 5.  Phase 5 runs on the same helpers below.
+#
+# Limits.  Every flash launch of a prefill is held to the plain version on
+# its own q, k, v by BF16_REL, as in phase 5.  whisper's logits take phase
+# 5's limits as they are: no softcap, no norm after attention, and every
+# attention is one KV block in the reference's schedule (1,500 and 416
+# keys), so the two backends differ as starcoder2's do, by bf16 roundings
+# of the accumulator.  gemma2 normalises each attention output (post_ln)
+# before the residual, so an attention's rounding reaches the stream at
+# full size in all 42 layers, and its global layers round the reference's
+# bf16 accumulator at 7 blocks; how far 42 such layers of random weights
+# carry that is not known beforehand.  So its end-to-end limits are
+# yardsticks of the same kind, measured in the run: the cuda backend
+# against the torch backend within LM_YARD_MEAN times (mean |d|) and
+# LM_YARD_MAX times (max |d|) the torch backend against itself over
+# 512-key blocks, and against the plain version in the kernel's place
+# within the same multiples of the plain version against itself over
+# 256-key blocks.
+LM_YARD_MEAN, LM_YARD_MAX = 2.0, 3.0
+TORCH_REORDERED, PLAIN_REORDERED = 512, 256     # KV blocks of the yardsticks
+
+
+def build_lm(torch, arch: str, B: int, P: int, G: int):
+    """``serve.build`` at full size, its parameters checked against the
+    reference's init."""
+    from repro_torch.launch import serve
+    ns = serve.parser().parse_args(
+        ["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
+         "--gen", str(G), "--seed", "0"])
+    with Timer(torch) as t_init:
+        model, prompts = serve.build(ns)
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    enc = f" + {cfg.enc_layers} encoder layers" if cfg.enc_layers else ""
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers{enc}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv} kv, dh {cfg.dh}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab} | {n_params:,} parameters "
+        f"({init_count(cfg):,} by the reference's init; "
+        f"{cfg.param_count():,} by param_count), {n_bytes / 1e9:.3f} GB "
+        f"{model.dtype} | init {t_init.s:.2f} s")
+    if n_params != init_count(cfg) or model.backend != "cuda" or \
+            model.dtype != torch.bfloat16:
+        raise AssertionError(f"the model is not the full {arch} in bf16 on "
+                             f"the cuda backend")
+    return model, prompts
+
+
+def serve_timed(torch, counts, FA, model, prompts, src, P, G, tag,
+                per_prefill: int, long_mode: bool):
+    """A cold prefill (``per_prefill`` flash launches, no other kernel),
+    G - 1 decode steps (no launch), a warm prefill with CUDA events around
+    each flash launch (their sum is the kernel's share of it), and with
+    ``long_mode`` G - 1 decode steps from it in long mode; times, peak
+    memory and the tokens checked in range."""
+    from repro_torch.launch import serve
+    B, V, steps = prompts.shape[0], model.cfg.vocab, G - 1
+    clock = lambda: Timer(torch)
+
+    def decoded(name, logits, caches, lm):
+        counts.reset()
+        with clock() as t:
+            toks = serve.decode(model, logits, caches, P, G, src, lm)
+        WINDOWS[f"{tag} {name}"] = dec = counts.read()
+        require(dec, silent=list(dec))
+        if toks.shape != (B, G) or not bool(((toks >= 0) & (toks < V))
+                                            .all()):
+            raise AssertionError(f"[{tag}] {name}: tokens out of range: "
+                                 f"{toks}")
+        return (f"{name} {steps} steps {t.s:.3f} s ({t.s / steps * 1e3:.2f}"
+                f" ms/step, {B * steps / t.s:.1f} tok/s)", toks)
+
+    torch.cuda.reset_peak_memory_stats()
+    counts.reset()
+    with clock() as t_cold:
+        logits, caches = serve.prefill(model, prompts, P + G, src)
+    WINDOWS[f"{tag} prefill"] = pre = counts.read()
+    if pre["flash_attention"] != per_prefill:
+        raise AssertionError(f"[{tag}] flash_attention launched "
+                             f"{pre['flash_attention']} times in a prefill, "
+                             f"expected {per_prefill}")
+    require(pre, silent=[k for k in pre if k != "flash_attention"])
+    runs = [decoded("decode", logits, caches, False)]
+    del caches
+    spans, real = [], FA.flash_attention
+
+    def timed(q, k, v, **kw):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        o = real(q, k, v, **kw)
+        b.record()
+        spans.append((a, b))
+        return o
+
+    FA.flash_attention = timed
+    try:
+        with clock() as t_warm:
+            warm, caches = serve.prefill(model, prompts, P + G, src)
+    finally:
+        FA.flash_attention = real
+    flash_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    if long_mode:
+        runs.append(decoded("long_mode decode", warm, caches, True))
+    del caches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{tag}] prefill B={B} P={P}: cold {t_cold.s:.3f} s, warm "
+        f"{t_warm.s:.3f} s ({B * P / t_warm.s:.0f} tok/s), its "
+        f"{len(spans)} flash launches {flash_s:.3f} s "
+        f"({flash_s / t_warm.s:.1%}, CUDA events) | "
+        + " | ".join(line for line, _ in runs)
+        + f" | peak {peak:.2f} GiB | launches: prefill "
+        f"{ {k: v for k, v in pre.items() if v} }, decode none | warm vs "
+        f"cold logits max |d| {float((warm - logits).abs().max()):.3e} | "
+        f"first tokens {runs[0][1][:, :8].tolist()}")
+    return logits
+
+
+def layer_checks(torch, FA, model, prompts, src, tag) -> list:
+    """Every flash launch of a prefill against the plain version on the
+    same q, k, v (BF16_REL), beside the plain version over 64-key blocks
+    against the same; returns each launch's (causal, window)."""
+    layer_err, layer_ref, kinds = [], [], []
 
     def checked(q, k, v, **kw):
         o = real(q, k, v, **kw)
         want = FA.flash_attention_plain(q, k, v, **kw)
+        if not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"[{tag}] a flash output is not finite")
         layer_err.append(bf16_rel(FA, o, want, q, k, v, **kw))
         layer_ref.append(bf16_err(FA, FA.flash_attention_plain(
             q, k, v, bk=64, **kw), want, q, k, v, **kw))
+        kinds.append((kw.get("causal", True), kw.get("window")))
         return o
 
     real = FA.flash_attention
-    prefill_with(model, prompts, FA, checked)
-    if len(layer_err) != cfg.n_layers:
-        raise AssertionError(f"{len(layer_err)} layer checks for "
-                             f"{cfg.n_layers} layers")
+    prefill_with(model, prompts, FA, checked, src)
     span = lambda errs: (f"at most {max(e[0] for e in errs):.3f} of the "
                          f"elementwise limit and {max(e[2] for e in errs):.3f}"
                          f" of two ulps of the value, normwise "
                          f"{min(e[1] for e in errs):.3e}-"
                          f"{max(e[1] for e in errs):.3e}")
-    log(f"[lm] flash_attention vs its plain version on each layer's own "
-        f"q, k, v: {span(layer_err)} | plain over 64-key blocks vs the "
-        f"same: {span(layer_ref)} (limits {BF16_REL})")
+    log(f"[{tag}] flash_attention vs its plain version on each of "
+        f"{len(kinds)} launches' own q, k, v: {span(layer_err)} | plain "
+        f"over 64-key blocks vs the same: {span(layer_ref)} (limits "
+        f"{BF16_REL})")
+    return kinds
 
-    # end to end: the same weights and prompts with the plain version in
-    # the kernel's place, and, for scale, with the plain version over KV
-    # blocks of 256 keys in place of 512 (the same function, its sums in
-    # another order)
+
+def logits_against(tag, logits, ref, what, yard=None, plain_mean=False):
+    """cuda prefill logits against a reference's: max |d| within
+    LM_LOGIT_TOL of its std (with ``plain_mean`` also a mean |d| at most
+    LM_PLAIN_MEAN times ``yard``'s), or, given ``yard`` (the reference
+    against itself in another order) alone, within LM_YARD_MEAN /
+    LM_YARD_MAX times its mean / max |d|."""
+    d = (logits - ref).abs()
+    max_d, mean_d, std = float(d.max()), float(d.mean()), float(ref.std())
+    top1 = int((logits.argmax(-1) == ref.argmax(-1)).sum())
+    line = (f"[{tag}] prefill logits, cuda vs {what}: max |d| {max_d:.4f} "
+            f"= {max_d / std:.4f} std, mean |d| {mean_d:.5f} (logit std "
+            f"{std:.4f}, max {float(ref.abs().max()):.4f}), top-1 {top1} "
+            f"of {logits.shape[0]}")
+    e = None if yard is None else (yard - ref).abs()
+    if yard is None or plain_mean:
+        ok = max_d <= LM_LOGIT_TOL * std
+        line += f" | limits: max {LM_LOGIT_TOL} std"
+        if plain_mean:
+            ok &= mean_d <= LM_PLAIN_MEAN * float(e.mean())
+            line += (f", mean {LM_PLAIN_MEAN} x the reordered run's "
+                     f"{float(e.mean()):.5f}")
+    else:
+        y_max, y_mean = float(e.max()), float(e.mean())
+        ok = mean_d <= LM_YARD_MEAN * y_mean and max_d <= LM_YARD_MAX * y_max
+        line += (f" | the same reordered: max |d| {y_max:.4f}, mean |d| "
+                 f"{y_mean:.5f}; limits {LM_YARD_MEAN} x mean, "
+                 f"{LM_YARD_MAX} x max")
+    log(line)
+    if not ok:
+        raise AssertionError(f"[{tag}] cuda and {what} prefill logits differ "
+                             f"beyond their limits")
+
+
+def window_phase(torch, counts, FA) -> dict:
+    """gemma2-9b on the cuda backend: 42 flash launches a prefill (21
+    windowed, 21 global), decode and long_mode decode, checked against
+    the torch backend and the plain version."""
+    from repro_torch.models import layers
+    B, P, G = WIN_BATCH, WIN_PROMPT, WIN_GEN
+    model, prompts = build_lm(torch, WIN_ARCH, B, P, G)
+    cfg = model.cfg
+    logits = serve_timed(torch, counts, FA, model, prompts, None, P, G,
+                         "gemma2", cfg.n_layers, long_mode=True)
+    model.backend = "torch"
+    counts.reset()
+    with Timer(torch) as t_ref:
+        ref = model.prefill_step(prompts)[0]
+    block = layers.KV_BLOCK
+    layers.KV_BLOCK = TORCH_REORDERED
+    try:
+        ref512 = model.prefill_step(prompts)[0]
+    finally:
+        layers.KV_BLOCK = block
+    model.backend = "cuda"
+    require(counts.read(), silent=["flash_attention"])
+    log(f"[gemma2] torch backend prefill {t_ref.s:.3f} s")
+    logits_against("gemma2", logits, ref, "torch", yard=ref512)
+    del ref, ref512
+    kinds = layer_checks(torch, FA, model, prompts, None, "gemma2")
+    want = [(True, cfg.local_window), (True, None)] * cfg.repeat
+    if kinds != want:
+        raise AssertionError(f"[gemma2] flash launches {kinds}, expected "
+                             f"{cfg.repeat} windowed and global in turn")
     counts.reset()
     plain = prefill_with(model, prompts, FA, FA.flash_attention_plain)
     plain256 = prefill_with(model, prompts, FA, functools.partial(
-        FA.flash_attention_plain, bk=256))
+        FA.flash_attention_plain, bk=PLAIN_REORDERED))
     require(counts.read(), silent=["flash_attention"])
-    d, d0 = (logits - plain).abs(), (plain256 - plain).abs()
-    std_p = float(plain.std())
-    mean_p, mean_0 = float(d.mean()), float(d0.mean())
-    top1_p = int((logits.argmax(-1) == plain.argmax(-1)).sum())
-    log(f"[lm] prefill logits, cuda vs plain attention: max |d| "
-        f"{float(d.max()):.4f} = {float(d.max()) / std_p:.4f} std, mean "
-        f"|d| {mean_p:.5f}, top-1 {top1_p} of {B} | plain vs plain over "
-        f"256-key blocks: max |d| {float(d0.max()):.4f}, mean |d| "
-        f"{mean_0:.5f} (limits: max {LM_LOGIT_TOL} std, mean "
-        f"{LM_PLAIN_MEAN} x the reordered run's)")
-    if not (float(d.max()) <= LM_LOGIT_TOL * std_p
-            and mean_p <= LM_PLAIN_MEAN * mean_0):
-        raise AssertionError(f"cuda and plain-attention prefill logits "
-                             f"differ by max {float(d.max())}, mean "
-                             f"{mean_p} (reordered plain run: {mean_0})")
-    del model, logits, ref, plain, plain256, again, d, d0, prompts
+    logits_against("gemma2", logits, plain, "plain attention",
+                   yard=plain256)
+    del model, logits, plain, plain256, prompts
     torch.cuda.empty_cache()
-    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
-    return check_flash(torch, args, flush, FA, pre["flash_attention"])
+    return {"windowed": cfg.repeat, "global": cfg.repeat}
 
+
+def encoder_phase(torch, counts, FA) -> dict:
+    """whisper-large-v3 on the cuda backend: 64 flash launches a prefill
+    (32 in the encoder, not causal; 32 in the decoder), decode with the
+    raw source, checked against the torch backend and the plain
+    version."""
+    B, P, G = ENC_BATCH, ENC_PROMPT, ENC_GEN
+    model, prompts = build_lm(torch, ENC_ARCH, B, P, G)
+    cfg = model.cfg
+    # drawn, not the launcher's ones: ones would make every encoder row
+    # alike, a weak check of the kernel
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    src = torch.randn((B, cfg.enc_seq, cfg.d_model), generator=gen,
+                      device=DEV)
+    logits = serve_timed(torch, counts, FA, model, prompts, src, P, G,
+                         "whisper", cfg.enc_layers + cfg.repeat,
+                         long_mode=False)
+    model.backend = "torch"
+    counts.reset()
+    with Timer(torch) as t_ref:
+        ref = model.prefill_step(prompts, src)[0]
+    model.backend = "cuda"
+    require(counts.read(), silent=["flash_attention"])
+    log(f"[whisper] torch backend prefill {t_ref.s:.3f} s")
+    logits_against("whisper", logits, ref, "torch")
+    del ref
+    kinds = layer_checks(torch, FA, model, prompts, src, "whisper")
+    want = [(False, None)] * cfg.enc_layers + [(True, None)] * cfg.repeat
+    if kinds != want:
+        raise AssertionError(f"[whisper] flash launches {kinds}, expected "
+                             f"{cfg.enc_layers} encoder then {cfg.repeat} "
+                             f"decoder launches")
+    counts.reset()
+    plain = prefill_with(model, prompts, FA, FA.flash_attention_plain, src)
+    plain256 = prefill_with(model, prompts, FA, functools.partial(
+        FA.flash_attention_plain, bk=PLAIN_REORDERED), src)
+    require(counts.read(), silent=["flash_attention"])
+    logits_against("whisper", logits, plain, "plain attention",
+                   yard=plain256, plain_mean=True)
+    del model, logits, plain, plain256, prompts, src
+    torch.cuda.empty_cache()
+    return {"encoder": cfg.enc_layers, "decoder": cfg.repeat}
+
+
+def time_flash(torch, args, flush, FA, name, shape, kw, flop, launches,
+               library, yardstick=None) -> dict:
+    """The flash kernel at one shape of the slice: it and ``library`` (one
+    PyTorch call computing the same function, (q, k, v) -> o) against the
+    plain version (BF16_REL, every output finite), each timed beside the
+    bound (bf16 tensor cores), and a named yardstick of another function
+    beside them."""
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    q, k, v = (torch.randn(shape, generator=gen, device=DEV).bfloat16()
+               for _ in range(3))
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    errs = []
+    for who, fn in (("flash_attention", FA.flash_attention),
+                    ("library", library)):
+        got = fn(q, k, v, **kw) if fn is FA.flash_attention else fn(q, k, v)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{who} at {name}: not finite")
+        try:
+            ratio = bf16_rel(FA, got, want, q, k, v, **kw)[0]
+        except AssertionError as exc:
+            raise AssertionError(f"{who} at {name}: {exc}") from None
+        errs.append((ratio, float((got.double() - want.double()).abs()
+                                  .max())))
+        del got
+    del want
+    b_ms, b_by = bound(nbytes(q, k, v, q), flop, TENSOR_BF16_OPS_PER_S)
+    rec = dict(name="flash_attention", route="cuda",
+               source="src/repro_torch/csrc/flash_attention.cu",
+               replaces="src/repro/kernels/flash_attention.py:65",
+               launches=launches, max_abs_err=errs[0][1],
+               ms=median_ms(torch, lambda: FA.flash_attention(q, k, v, **kw),
+                            args.reps, flush),
+               plain_ms=median_ms(torch, lambda: FA.flash_attention_plain(
+                   q, k, v, **kw), 3, flush),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=median_ms(torch, lambda: library(q, k, v),
+                                    args.reps, flush),
+               library=library.__name__, library_max_abs_err=errs[1][1],
+               at=name, shape=dict(BH=shape[0], S=shape[1], dh=shape[2],
+                                   dtype="bfloat16", **kw))
+    rec["library_ratio"] = rec["ms"] / rec["library_ms"]
+    if yardstick is not None:
+        rec["yardstick"] = yardstick.__name__
+        rec["yardstick_ms"] = median_ms(torch, lambda: yardstick(q, k, v),
+                                        args.reps, flush)
+    rec["tflops"] = flop / rec["ms"] / 1e9
+    log(f"[kernel] flash_attention at {name}: {rec['ms']:.4f} ms (plain "
+        f"{rec['plain_ms']:.4f}, bound {b_ms:.4f} by {b_by}, library "
+        f"{rec['library']} {rec['library_ms']:.4f}, "
+        f"{rec['library_ratio']:.2f}x it; {rec.get('yardstick')} "
+        f"{rec.get('yardstick_ms')}; {rec['tflops']:.1f} TFLOP/s) "
+        f"{errs[0][0]:.3f} of the elementwise limit, max abs err "
+        f"{errs[0][1]:.3e} | library {errs[1][0]:.3f} of the limit, max "
+        f"abs err {errs[1][1]:.3e} | {launches} launches a prefill | "
+        f"{rec['shape']}")
+    return rec
+
+
+def flex_softcap(torch, S: int, dh: int, cap: float, window=None):
+    """``flex_attention`` computing the kernel's function on (BH, S, dh)
+    inputs: a tanh softcap on the scaled scores and a causal block mask,
+    with ``window`` also keys ``window`` or more behind the row.  Compiled
+    (Triton, through inductor, caches under build/) and its mask built
+    before it is timed."""
+    from torch._inductor import config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    config.compile_threads = 1      # no compile workers outlive the smoke
+
+    def score_mod(s, b, h, qi, ki):
+        return torch.tanh(s / cap) * cap
+
+    def mask_mod(b, h, qi, ki):
+        m = qi >= ki
+        return m if window is None else m & (qi - ki < window)
+
+    block = create_block_mask(mask_mod, None, None, S, S, device=DEV)
+    flex = torch.compile(flex_attention, dynamic=False)
+
+    def flex_attention_softcap(q, k, v):
+        return flex(q[None], k[None], v[None], score_mod=score_mod,
+                    block_mask=block)[0]
+
+    with Timer(torch) as t:
+        flex_attention_softcap(*(torch.zeros((1, S, dh), device=DEV,
+                                              dtype=torch.bfloat16)
+                                 for _ in range(3)))
+    log(f"[kernel] flex_attention softcap {cap} window {window}: compiled "
+        f"in {t.s:.1f} s")
+    return flex_attention_softcap
+
+
+def slice_flash_shapes(torch, args, FA, win: dict, enc: dict) -> list:
+    """The flash kernel at gemma2's prefill (global and windowed: BH 32,
+    S 7,168, dh 256, softcap 50, on the CUDA cores) and whisper's encoder
+    (BH 80, S 1,500, dh 64, not causal, on the tensor cores), each beside
+    the one PyTorch call computing the same function: flex_attention with
+    the softcap and the (windowed) causal mask for gemma2, SDPA for
+    whisper."""
+    from repro_torch.configs.archs import get_arch
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_causal(q, k, v):
+        return sdpa(q[None], k[None], v[None], is_causal=True)[0]
+
+    def sdpa_full(q, k, v):
+        return sdpa(q[None], k[None], v[None])[0]
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
+    g, w = get_arch(WIN_ARCH), get_arch(ENC_ARCH)
+    S, W, BH = WIN_PROMPT, g.local_window, WIN_BATCH * g.n_heads
+    cap = g.attn_softcap
+    # 4 * dh * BH * the keys in reach of each row, on the bf16 tensor cores
+    flop_g = 4 * g.dh * BH * sum(min(i + 1, S) for i in range(S))
+    flop_w = 4 * g.dh * BH * sum(min(i + 1, W) for i in range(S))
+    return [
+        time_flash(torch, args, flush, FA, "gemma2 global prefill",
+                   (BH, S, g.dh), dict(causal=True, softcap=cap), flop_g,
+                   win["global"], flex_softcap(torch, S, g.dh, cap),
+                   yardstick=sdpa_causal),
+        time_flash(torch, args, flush, FA, "gemma2 windowed prefill",
+                   (BH, S, g.dh), dict(causal=True, softcap=cap, window=W),
+                   flop_w, win["windowed"],
+                   flex_softcap(torch, S, g.dh, cap, W),
+                   yardstick=sdpa_causal),
+        time_flash(torch, args, flush, FA, "whisper encoder",
+                   (ENC_BATCH * w.n_heads, w.enc_seq, w.dh),
+                   dict(causal=False),
+                   4 * w.dh * ENC_BATCH * w.n_heads * w.enc_seq ** 2,
+                   enc["encoder"], sdpa_full),
+    ]
 
 # Triangle counting (phase 2d): the reference's TC family
 # (benchmarks/dynamic_vs_static.py: run_tc), a uniform graph with its
@@ -2356,6 +2760,11 @@ def main(argv=None) -> int:
                          "device time goes and the host syncs")
     args = ap.parse_args(argv)
 
+    # inductor's and Triton's caches (phase 5's flex_attention) stay in the
+    # checkout
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, os.path.join(ROOT, "build", sub))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2721,6 +3130,12 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kernels.append(lm_phase(torch, args, counts, FA))
     mark("lm serving")
+    win = window_phase(torch, counts, FA)
+    mark("gemma2 serving")
+    enc = encoder_phase(torch, counts, FA)
+    mark("whisper serving")
+    kernels[-1]["shapes"] = slice_flash_shapes(torch, args, FA, win, enc)
+    mark("flash at the slice's shapes")
     log(f"[check] whole smoke {stamps[-1][1] - stamps[0][1]:.1f} s")
     log("[time] " + " | ".join(f"{b[0]} {b[1] - a[1]:.1f} s"
                                for a, b in zip(stamps, stamps[1:])))

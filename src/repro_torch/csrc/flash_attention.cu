@@ -9,7 +9,8 @@
 //   float32 or bf16, kv heads already repeated.  Per row i of each bh:
 //     q_i   = q[i] * dh^-0.5, rounded to q's type
 //     s_ij  = q_i . k_j in float32; tanh(s/cap)*cap with a softcap;
-//             -1e30 where j > i (causal) or j >= S
+//             -1e30 where j > i (causal), i - j >= W (a window W, causal
+//             only: the reference model's local attention) or j >= S
 //     o[i]  = sum_j p_ij v_j / max(sum_j p_ij, 1e-20), cast to q's type
 //   with p_ij the online softmax over KV tiles: running max m and
 //   denominator l in float32 (l sums the unrounded p), p = exp(s - m) cast
@@ -18,7 +19,15 @@
 //   VMEM scratch become a loop over KV tiles inside one block, whose state
 //   stays in registers; one block handles one (bh, q tile).  Causal blocks
 //   stop at their diagonal tile (the tiles past it are fully masked and
-//   change no output), and the heaviest q tiles are issued first.  A
+//   change no output), and the heaviest q tiles are issued first.  With a
+//   window a block starts at the KV tile that holds its first row's
+//   lowest key in reach (the tiles below it change no output either), and
+//   the tiles at the window's lower edge take the masked softmax.  A
+//   window can leave a row's whole first tile masked (causal attention
+//   alone never does: key 0 is in every row's reach).  The reference then
+//   gives those scores p = 1, and the row's next tile, the first with a
+//   real max, multiplies l and acc by exactly 0; the kernels keep that
+//   result exactly (see softmax_tile and the CUDA-core loop).  A
 //   ragged S is masked at the edge (the TPU grid's S // bq leaves the tail
 //   unwritten; this kernel writes every row).
 //   Bound on this card, at the LM prefill of starcoder2-7b (BH = 4 * 36,
@@ -58,6 +67,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
@@ -84,10 +94,17 @@ __device__ __forceinline__ float round_to(float x) {
   return to_float(from_float<T>(x));
 }
 
+// the window is INT_MAX where there is none, so row - key never reaches it
+__device__ __forceinline__ bool masked(int key, int row, int S, int causal,
+                                       int window) {
+  return key >= S || (causal && key > row) || row - key >= window;
+}
+
 __device__ __forceinline__ float softcap_mask(float s, float softcap, int key,
-                                              int row, int S, int causal) {
+                                              int row, int S, int causal,
+                                              int window) {
   if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-  return (key >= S || (causal && key > row)) ? NEG : s;
+  return masked(key, row, S, causal, window) ? NEG : s;
 }
 
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -330,14 +347,20 @@ __device__ __forceinline__ void release(uint32_t bar, int lane) {
 // The online softmax of one S tile of a consumer (64 rows x 128 keys, in
 // the accumulator layout: element i is key k0 + 8 (i / 4) + 2t + (i & 1)
 // of row (i & 2) ? r0 + 8 : r0): softcap, mask (``edge``: the diagonal
-// tile or one past S), the running max m and denominator l (over the
-// unrounded p), alpha = exp(m_old - m_new), and s = exp(s - m_new), each
-// exp taken as exp2 of an fma with log2 e (one fma and one MUFU.EX2 a
-// score, where the accurate expf spends several more).
+// tile, one past S or one at the window's lower edge), the running max m
+// and denominator l (over the unrounded p), alpha = exp(m_old - m_new),
+// and s = exp(s - m_new), each exp taken as exp2 of an fma with log2 e
+// (one fma and one MUFU.EX2 a score, where the accurate expf spends
+// several more).  A row whose scores are all masked so far (max -1e30:
+// only a window's first tile gives one) takes 0 for the max's product
+// with log2 e: the fma would otherwise read the rounding of -1e30 * log2
+// e (~1e23) and give inf, then NaN.  Its p and alpha are then exactly 0
+// where the reference has p = 1 and alpha = 1; both leave l and acc
+// exactly 0 once the row's first real max multiplies them by 0.
 __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
                                              int k0, int r0, int t, int S,
-                                             int causal, bool edge,
+                                             int causal, int window, bool edge,
                                              float softcap) {
   if (softcap > 0.f) {
 #pragma unroll
@@ -348,7 +371,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
     for (int i = 0; i < 64; ++i) {
       const int key = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
       const int row = (i & 2) ? r0 + 8 : r0;
-      if (key >= S || (causal && key > row)) s[i] = NEG;
+      if (masked(key, row, S, causal, window)) s[i] = NEG;
     }
   }
   float mx[2] = {m[0], m[1]};
@@ -361,7 +384,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2],
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(FULL, mx[h], 2));
   }
   // exp(x) as exp2(x log2 e), the max folded into one fma per score
-  const float mxl[2] = {mx[0] * LOG2E, mx[1] * LOG2E};
+  const float mxl[2] = {mx[0] == NEG ? 0.f : mx[0] * LOG2E,
+                        mx[1] == NEG ? 0.f : mx[1] * LOG2E};
   float rs[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
@@ -421,7 +445,7 @@ __global__ void __launch_bounds__(384, 1)
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
                        const __grid_constant__ CUtensorMap to, int S,
-                       int causal, float scale, float softcap) {
+                       int causal, int window, float scale, float softcap) {
   constexpr int NB = DH / 64;            // 64-column boxes in a tile row
   constexpr int TILE = NB * BOX_BYTES;   // one 128-row tile of Q, K or V
   extern __shared__ uint8_t smem_raw[];
@@ -439,8 +463,14 @@ __global__ void __launch_bounds__(384, 1)
   const int bh = blockIdx.x / nqt;
   const int qt = nqt - 1 - blockIdx.x % nqt;
   const int q0 = qt * WG_BQ;
-  // causal: key tiles 0..qt (those past the diagonal change no output)
-  const int ntiles = causal ? qt + 1 : (S + WG_BK - 1) / WG_BK;
+  // a window: key tiles from jlo, the tile of the first row's lowest key
+  // in reach (those below change no output); causal: up to qt (those past
+  // the diagonal change no output either); the producer and the consumers
+  // walk the same tiles, so the ring's stages and phases agree
+  const int jlo = q0 - window + 1 > 0 ? (q0 - window + 1) / WG_BK : 0;
+  const int jend = causal ? qt + 1 : (S + WG_BK - 1) / WG_BK;
+  // the tiles with a key below the window of the tile's last row
+  const int lower_edge = q0 + WG_BQ - window;
 
   if (threadIdx.x == 0) {
     mbar_init(qbar, 1);
@@ -462,7 +492,7 @@ __global__ void __launch_bounds__(384, 1)
       for (int b = 0; b < NB; ++b)
         tma_load(sq + b * BOX_BYTES, &tq, b * 64, q0, bh, qbar);
       int stage = 0, phase = 0;
-      for (int j = 0; j < ntiles; ++j) {
+      for (int j = jlo; j < jend; ++j) {
         const uint32_t kdst = sk + stage * TILE, vdst = sv + stage * TILE;
         mbar_wait(empty_k + 8 * stage, phase ^ 1);   // round 0 passes
         mbar_expect_tx(full_k + 8 * stage, TILE);
@@ -530,12 +560,14 @@ __global__ void __launch_bounds__(384, 1)
     wgmma_wait<0>();
     fence_regs(s);
     release(empty_k, lane);
-    softmax_tile(s, m, l, alpha, 0, r0, t, S, causal,
-                 (causal && qt == 0) || WG_BK > S, softcap);
+    softmax_tile(s, m, l, alpha, jlo * WG_BK, r0, t, S, causal, window,
+                 (causal && jlo == qt) || (jlo + 1) * WG_BK > S ||
+                     jlo * WG_BK < lower_edge,
+                 softcap);
     pack_p(s, p);
 
     int stage = 0, phase = 0;   // tile j - 1's
-    for (int j = 1; j < ntiles; ++j) {
+    for (int j = jlo + 1; j < jend; ++j) {
       const int k0 = j * WG_BK;
       const int next = stage + 1 == NS ? 0 : stage + 1;
       const int next_phase = next == 0 ? phase ^ 1 : phase;
@@ -548,8 +580,9 @@ __global__ void __launch_bounds__(384, 1)
       wgmma_wait<1>();   // S is ready, P.V may still run
       fence_regs(s);
       release(empty_k + 8 * next, lane);
-      softmax_tile(s, m, l, alpha, k0, r0, t, S, causal,
-                   (causal && j == qt) || k0 + WG_BK > S, softcap);
+      softmax_tile(s, m, l, alpha, k0, r0, t, S, causal, window,
+                   (causal && j == qt) || k0 + WG_BK > S || k0 < lower_edge,
+                   softcap);
       wgmma_wait<0>();
       fence_regs(acc);
       release(empty_v + 8 * stage, lane);
@@ -644,7 +677,7 @@ bool head_map(CUtensorMap* map, const void* x, int BH, int S, int dh,
 
 template <int DH, int NS>
 int launch_wgmma(const void* q, const void* k, const void* v, void* o, int BH,
-                 int S, int causal, float scale, float softcap,
+                 int S, int causal, int window, float scale, float softcap,
                  cudaStream_t st) {
   CUtensorMap tq, tk, tv, to;
   if (!head_map(&tq, q, BH, S, DH, WG_BQ) ||
@@ -663,7 +696,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int BH,
   }
   const unsigned grid = (unsigned)BH * ((S + WG_BQ - 1) / WG_BQ);
   flash_wgmma_kernel<DH, NS><<<grid, 384, smem, st>>>(
-      tq, tk, tv, to, S, causal, scale, softcap);
+      tq, tk, tv, to, S, causal, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -686,7 +719,8 @@ template <typename T, int DPL>
 __global__ void __launch_bounds__(128)
     flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o, int S,
-                      int dh, int causal, float scale, float softcap) {
+                      int dh, int causal, int window, float scale,
+                      float softcap) {
   extern __shared__ float smem[];
   float* qs = smem;                        // [BQ][dh], scaled and rounded
   float* ks = qs + SIMT_BQ * dh;           // [BK][dh + 1], padded
@@ -711,8 +745,14 @@ __global__ void __launch_bounds__(128)
     for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
   }
 
+  // the tiles past the diagonal and, with a window, those below the first
+  // row's lowest key in reach change no output.  A row whose first tile is
+  // all masked takes p = exp(-1e30 - -1e30) = 1 and alpha = 1 there, as
+  // the reference does, and its next tile's alpha = 0 clears them exactly.
   const int kend = causal ? min(S, q0 + SIMT_BQ) : S;
-  for (int k0 = 0; k0 < kend; k0 += SIMT_BK) {
+  const int kstart =
+      q0 - window + 1 > 0 ? (q0 - window + 1) / SIMT_BK * SIMT_BK : 0;
+  for (int k0 = kstart; k0 < kend; k0 += SIMT_BK) {
     __syncthreads();
     for (int i = threadIdx.x; i < SIMT_BK * dh; i += blockDim.x) {
       const int r = i / dh, d = i % dh;
@@ -729,7 +769,7 @@ __global__ void __launch_bounds__(128)
       const float* qr = qs + r * dh;
       float s = 0.f;
       for (int d = 0; d < dh; ++d) s = fmaf(qr[d], kr[d], s);
-      s = softcap_mask(s, softcap, k0 + lane, q0 + r, S, causal);
+      s = softcap_mask(s, softcap, k0 + lane, q0 + r, S, causal, window);
       float mx = fmaxf(m[rr], s);
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
@@ -772,8 +812,8 @@ __global__ void __launch_bounds__(128)
 
 template <typename T, int DPL>
 int launch_simt(const void* q, const void* k, const void* v, void* o, int BH,
-                int S, int dh, int causal, float scale, float softcap,
-                cudaStream_t st) {
+                int S, int dh, int causal, int window, float scale,
+                float softcap, cudaStream_t st) {
   const size_t smem = simt_smem(dh);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -783,47 +823,54 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int BH,
   }
   const dim3 grid(BH, (S + SIMT_BQ - 1) / SIMT_BQ);
   flash_simt_kernel<T, DPL><<<grid, 128, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, dh, causal, scale,
-      softcap);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, dh, causal, window,
+      scale, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_simt(const void* q, const void* k, const void* v, void* o,
-                  int BH, int S, int dh, int causal, float scale,
+                  int BH, int S, int dh, int causal, int window, float scale,
                   float softcap, cudaStream_t st) {
   if (dh <= 32)
-    return launch_simt<T, 1>(q, k, v, o, BH, S, dh, causal, scale, softcap, st);
+    return launch_simt<T, 1>(q, k, v, o, BH, S, dh, causal, window, scale,
+                             softcap, st);
   if (dh <= 64)
-    return launch_simt<T, 2>(q, k, v, o, BH, S, dh, causal, scale, softcap, st);
+    return launch_simt<T, 2>(q, k, v, o, BH, S, dh, causal, window, scale,
+                             softcap, st);
   if (dh <= 128)
-    return launch_simt<T, 4>(q, k, v, o, BH, S, dh, causal, scale, softcap, st);
-  return launch_simt<T, 8>(q, k, v, o, BH, S, dh, causal, scale, softcap, st);
+    return launch_simt<T, 4>(q, k, v, o, BH, S, dh, causal, window, scale,
+                             softcap, st);
+  return launch_simt<T, 8>(q, k, v, o, BH, S, dh, causal, window, scale,
+                           softcap, st);
 }
 
 }  // namespace
 
 // q, k, v, o: (BH, S, dh) contiguous, 16-byte aligned; is_bf16 selects
-// bf16 over float32; scale is dh^-0.5 already rounded to q's type (the
-// reference multiplies q by a weakly typed scalar); softcap <= 0 means
-// none.  dh <= 256, S <= 65535 * 16.
+// bf16 over float32; window > 0 masks keys window or more behind the row
+// (causal only), 0 means none; scale is dh^-0.5 already rounded to q's
+// type (the reference multiplies q by a weakly typed scalar); softcap <=
+// 0 means none.  dh <= 256, S <= 65535 * 16.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int BH, int S,
                                      int dh, int is_bf16, int causal,
-                                     float scale, float softcap,
+                                     int window, float scale, float softcap,
                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (BH <= 0 || S <= 0) return 0;
-  if (dh <= 0 || dh > 256) return (int)cudaErrorInvalidValue;
+  if (dh <= 0 || dh > 256 || window < 0 || (window > 0 && !causal))
+    return (int)cudaErrorInvalidValue;
+  const int win = window > 0 ? window : INT_MAX;
   if (is_bf16 && dh == 128)
-    return launch_wgmma<128, 2>(q, k, v, o, BH, S, causal, scale, softcap,
-                                st);
+    return launch_wgmma<128, 2>(q, k, v, o, BH, S, causal, win, scale,
+                                softcap, st);
   if (is_bf16 && dh == 64)
-    return launch_wgmma<64, 3>(q, k, v, o, BH, S, causal, scale, softcap,
-                               st);
+    return launch_wgmma<64, 3>(q, k, v, o, BH, S, causal, win, scale,
+                               softcap, st);
   if (is_bf16)
-    return dispatch_simt<bf16>(q, k, v, o, BH, S, dh, causal, scale, softcap,
-                               st);
-  return dispatch_simt<float>(q, k, v, o, BH, S, dh, causal, scale, softcap,
-                              st);
+    return dispatch_simt<bf16>(q, k, v, o, BH, S, dh, causal, win, scale,
+                               softcap, st);
+  return dispatch_simt<float>(q, k, v, o, BH, S, dh, causal, win, scale,
+                              softcap, st);
 }

@@ -100,9 +100,9 @@ _SIGNATURES = {
     "repro_relax_rowargmin": [P] * 5 + [I] * 4 + [P],
     # segment.cu — vals, order (or null), offsets, out, num, stream
     "repro_segment_sum_sorted": [P] * 4 + [I] + [P],
-    # flash_attention.cu — q, k, v, o, BH, S, dh, is_bf16, causal, scale,
-    # softcap, stream
-    "repro_flash_attention": [P] * 4 + [I] * 5 + [F] * 2 + [P],
+    # flash_attention.cu — q, k, v, o, BH, S, dh, is_bf16, causal, window
+    # (0: none), scale, softcap, stream
+    "repro_flash_attention": [P] * 4 + [I] * 6 + [F] * 2 + [P],
     # graph_cond.cu — the conditional nodes of core/device_loop.py:
     # stream, handle out
     "repro_cond_handle": [P, P],

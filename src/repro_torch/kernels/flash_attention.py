@@ -1,13 +1,17 @@
 """Flash-attention forward: the LM stack's prefill kernel.
 
-``flash_attention(q, k, v, causal=..., softcap=...)`` takes q, k, v of
-shape (BH, S, dh), float32 or bf16, with the kv heads already repeated,
-and returns (BH, S, dh) in q's type — the contract of the reference's
-Pallas kernel (``repro/kernels/flash_attention.py``): q scaled by
-dh**-0.5 in q's type, float32 scores, an optional tanh softcap, causal
-masking by absolute index with -1e30, an online softmax with float32
-running max, denominator and accumulator, ``p`` cast to v's type before
-the P·V product, and ``acc / max(l, 1e-20)`` cast to q's type.
+``flash_attention(q, k, v, causal=..., softcap=..., window=...)`` takes
+q, k, v of shape (BH, S, dh), float32 or bf16, with the kv heads already
+repeated, and returns (BH, S, dh) in q's type — the contract of the
+reference's Pallas kernel (``repro/kernels/flash_attention.py``): q
+scaled by dh**-0.5 in q's type, float32 scores, an optional tanh softcap,
+causal masking by absolute index with -1e30, an online softmax with
+float32 running max, denominator and accumulator, ``p`` cast to v's type
+before the P·V product, and ``acc / max(l, 1e-20)`` cast to q's type.
+The Pallas kernel has no window; the reference model's chunked attention
+does (``repro/models/layers.py:flash_attention``, local attention): with
+``window=W`` a causal score s_ij is also masked where ``i - j >= W``,
+after the softcap.  A window needs ``causal=True``.
 
 On a CUDA tensor it launches the hand-written kernel
 (``csrc/flash_attention.cu``: bf16 with dh 64 or 128 on the tensor cores
@@ -49,9 +53,22 @@ def scaled(x: torch.Tensor, scale: float) -> torch.Tensor:
     return x * rounded(scale, x.dtype)
 
 
-def flash_attention_plain(q, k, v, *, causal=True, softcap=None, bk=BK):
+def check_window(causal: bool, window) -> None:
+    if window is None:
+        return
+    if not causal:
+        raise ValueError("a window masks keys behind a row: it needs "
+                         "causal=True, as in the reference")
+    if isinstance(window, bool) or not isinstance(window, int) or window < 1:
+        raise ValueError(f"window must be a positive int, got {window!r}")
+
+
+def flash_attention_plain(q, k, v, *, causal=True, softcap=None, window=None,
+                          bk=BK):
     """The plain version: one pass per block of ``bk`` keys over every q
-    row at once (causal blocks wholly in a row's future add exactly 0)."""
+    row at once (causal blocks wholly in a row's future add exactly 0; so
+    do a window's blocks wholly behind a row, after its first real max)."""
+    check_window(causal, window)
     BH, S, dh = q.shape
     f32 = torch.float32
     qs = scaled(q, dh ** -0.5).to(f32)
@@ -66,7 +83,10 @@ def flash_attention_plain(q, k, v, *, causal=True, softcap=None, bk=BK):
             s = torch.tanh(s / softcap) * softcap
         if causal:
             kj = torch.arange(k0, k0 + kb.shape[1], device=q.device)
-            s = torch.where(qi[:, None] >= kj[None, :], s, NEG)
+            ok = qi[:, None] >= kj[None, :]
+            if window is not None:
+                ok &= qi[:, None] - kj[None, :] < window
+            s = torch.where(ok, s, NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
@@ -77,10 +97,12 @@ def flash_attention_plain(q, k, v, *, causal=True, softcap=None, bk=BK):
     return (acc / torch.clamp(l, min=1e-20)[..., None]).to(q.dtype)
 
 
-def flash_attention(q, k, v, *, causal=True, softcap=None):
+def flash_attention(q, k, v, *, causal=True, softcap=None, window=None):
     """(BH, S, dh) attention forward in q's type; see the module doc."""
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, softcap=softcap)
+        return flash_attention_plain(q, k, v, causal=causal, softcap=softcap,
+                                     window=window)
+    check_window(causal, window)
     name = "flash_attention"
     dev = cuda_device(name, q)
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -106,8 +128,8 @@ def flash_attention(q, k, v, *, causal=True, softcap=None):
     scale = rounded(dh ** -0.5, q.dtype)
     err = _build.load().repro_flash_attention(
         ptr(q), ptr(k), ptr(v), ptr(o), BH, S, dh,
-        int(q.dtype == torch.bfloat16), int(causal), scale,
-        float(softcap or 0.0), _stream(dev))
+        int(q.dtype == torch.bfloat16), int(causal), min(window or 0, S),
+        scale, float(softcap or 0.0), _stream(dev))
     raise_on(err, name)
     LAUNCHES[name] += 1
     return o

@@ -9,7 +9,9 @@ recomputation; its attention goes through the flash kernel on the
 ``cuda`` backend), then ``--gen`` greedy tokens come from
 ``Model.serve_step`` over the cache, one token a step.  Weights and
 prompts come from one ``torch.Generator`` seeded with ``--seed`` on the
-model's device.
+model's device.  A vlm or audio arch also gets the reference's source
+stand-in (``source``: ones of (B, image tokens or encoder frames, D)),
+in prefill and in every decode step.
 
 ``--graph`` serves graph sessions instead (the reference's
 ``serve_graphs``): one ``SessionPool`` of ``--tenants`` live graphs on
@@ -55,22 +57,34 @@ def build(args):
     return model, prompts
 
 
-def prefill(model: Model, prompts, total: int):
+def source(cfg, batch: int, device):
+    """The reference launcher's ``src`` stand-in: ones of (B, n_img_tokens,
+    D) for a vlm, (B, enc_seq, D) for an audio arch, else None."""
+    length = {"vlm": cfg.n_img_tokens, "audio": cfg.enc_seq}.get(cfg.family)
+    if length is None:
+        return None
+    return torch.ones((batch, length, cfg.d_model), dtype=torch.float32,
+                      device=device)
+
+
+def prefill(model: Model, prompts, total: int, src=None):
     """Last-position logits and the cache padded to ``total`` positions."""
-    logits, caches = model.prefill_step(prompts)
+    logits, caches = model.prefill_step(prompts, src)
     pad = total - prompts.shape[1]
     caches = [{n: F.pad(x, (0, 0, 0, pad)) for n, x in c.items()}
               for c in caches]
     return logits, caches
 
 
-def decode(model: Model, logits, caches, start: int, gen: int):
+def decode(model: Model, logits, caches, start: int, gen: int, src=None,
+           long_mode: bool = False):
     """``gen`` greedy tokens (B, gen) int64: the first from the prefill's
     logits, each next one from ``serve_step`` at position start + i."""
     tok = torch.argmax(logits, dim=-1)[:, None]
     out = [tok]
     for i in range(gen - 1):
-        logits, caches = model.serve_step(caches, tok, start + i)
+        logits, caches = model.serve_step(caches, tok, start + i, src,
+                                          long_mode)
         tok = torch.argmax(logits, dim=-1)[:, None]
         out.append(tok)
     return torch.cat(out, dim=1)
@@ -85,17 +99,18 @@ def serve(args) -> dict:
     model, prompts = build(args)
     dev, cfg = model.device, model.cfg
     B, P, G = args.batch, args.prompt_len, args.gen
+    src = source(cfg, B, dev)
 
     # ---- prefill (static recomputation over the prompt) -------------------
     _sync(dev)
     t0 = time.perf_counter()
-    logits, caches = prefill(model, prompts, P + G)
+    logits, caches = prefill(model, prompts, P + G, src)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 
     # ---- incremental decode ------------------------------------------------
     t0 = time.perf_counter()
-    toks = decode(model, logits, caches, P, G)
+    toks = decode(model, logits, caches, P, G, src)
     _sync(dev)
     t_decode = time.perf_counter() - t0
 

@@ -1,6 +1,8 @@
 """Transformer layers for attention + MLP models (counterpart of
 ``repro/models/layers.py``): norms, RoPE, GQA attention (flash for
-prefill, cache attention for decode), the SwiGLU MLP, parameter init.
+prefill, cache attention for decode, either windowed for local
+attention), cross-attention to a source's k and v, the SwiGLU MLP,
+parameter init.
 
 Conventions as in the reference: activations (B, S, D); attention heads
 (B, S, H, dh); every sublayer is pre-norm residual; a sublayer's weights
@@ -18,10 +20,12 @@ argument is threaded through.
   (as the Pallas kernel is on the TPU), with a float32 accumulator.  On a
   CPU tensor the kernel's wrapper runs its plain version.
 
-``cache_attend`` and the projections are plain tensor code; the
-reference computes them outside any kernel too.  Decode writes the new
-token's k and v into the cache in place (the reference's
-``dynamic_update_slice`` makes a new cache each step).
+``cache_attend``, ``cross_attention`` and the projections are plain
+tensor code; the reference computes them outside any kernel too.  Decode
+writes the new token's k and v into the cache in place (the reference's
+``dynamic_update_slice`` makes a new cache each step); with a window it
+reads only the window's slice of a longer cache, as the reference's
+``window_slice`` tuning does (on in its default ``OPTIMIZED``).
 """
 from __future__ import annotations
 
@@ -97,14 +101,14 @@ def _flash_body(q, k, v, mask, cap):
 
 
 def flash_attention(q, k, v, cfg: ArchConfig, positions, causal: bool,
-                    scale: float, backend: str = "cuda"):
+                    scale: float, backend: str = "cuda", window=None):
     """Chunked-softmax attention; q,k,v: (B,S,H,dh) (kv already repeated).
 
     ``positions`` is ``arange(S)`` on every caller; the kernel masks by
-    absolute index, which is the same thing.  The reference's ``window``
-    (local attention) waits for ROADMAP Queue 1 item 14b."""
+    absolute index, which is the same thing.  ``window`` (local attention)
+    also masks keys ``window`` or more behind the row (causal only)."""
     if backend == "cuda":
-        return _flash_kernel(q, k, v, cfg, causal, scale)
+        return _flash_kernel(q, k, v, cfg, causal, scale, window)
     if backend != "torch":
         raise ValueError(f"unknown backend {backend!r}; one of {BACKENDS}")
     B, S, H, dh = q.shape
@@ -118,7 +122,11 @@ def flash_attention(q, k, v, cfg: ArchConfig, positions, causal: bool,
     acc = torch.zeros((B, S, H, dh), dtype=q.dtype, device=q.device)
     for k0 in range(0, S, Kb):
         kpos = k0 + torch.arange(Kb, device=q.device)
-        mask = qpos[:, None] >= kpos[None, :] if causal else None
+        mask = None
+        if causal:
+            mask = qpos[:, None] >= kpos[None, :]
+            if window is not None:
+                mask &= qpos[:, None] - kpos[None, :] < window
         m1, l1, a1 = _flash_body(q, k[:, k0:k0 + Kb], v[:, k0:k0 + Kb],
                                  mask, cfg.attn_softcap)
         mn = torch.maximum(m, m1)
@@ -138,13 +146,14 @@ def to_heads(x):
     return x.transpose(1, 2).reshape(B * H, S, dh).contiguous()
 
 
-def _flash_kernel(q, k, v, cfg: ArchConfig, causal, scale):
+def _flash_kernel(q, k, v, cfg: ArchConfig, causal, scale, window):
     B, S, H, dh = q.shape
     if scale != dh ** -0.5:
         raise ValueError(f"the flash kernel scales q by dh**-0.5, "
                          f"got scale={scale}")
     o = FK.flash_attention(to_heads(q), to_heads(k), to_heads(v),
-                           causal=causal, softcap=cfg.attn_softcap)
+                           causal=causal, softcap=cfg.attn_softcap,
+                           window=window)
     return o.reshape(B, H, S, dh).transpose(1, 2)
 
 
@@ -157,7 +166,7 @@ def repeat_kv(k, n_rep):
 
 
 def attention_full(p, x, cfg: ArchConfig, positions, causal=True,
-                   backend="cuda"):
+                   backend="cuda", window=None):
     """Attention over the whole sequence: (out, k, v), with k and v after
     RoPE and before ``repeat_kv`` (what prefill puts in the cache)."""
     B, S, D = x.shape
@@ -167,16 +176,18 @@ def attention_full(p, x, cfg: ArchConfig, positions, causal=True,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     o = flash_attention(q, repeat_kv(k, H // kv), repeat_kv(v, H // kv), cfg,
-                        positions, causal, scale=dh ** -0.5, backend=backend)
+                        positions, causal, scale=dh ** -0.5, backend=backend,
+                        window=window)
     return o.reshape(B, S, H * dh) @ p["wo"], k, v
 
 
 def attention_train(p, x, cfg: ArchConfig, positions, causal=True,
-                    backend="cuda"):
-    return attention_full(p, x, cfg, positions, causal, backend)[0]
+                    window=None, backend="cuda"):
+    return attention_full(p, x, cfg, positions, causal, backend, window)[0]
 
 
-def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos: int):
+def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos: int,
+                     window=None):
     """x: (B,1,D); cache_k/v: (B,kv,S,dh), written at ``pos`` in place."""
     B, _, D = x.shape
     H, kv, dh = cfg.n_heads, cfg.n_kv, cfg.dh
@@ -186,26 +197,60 @@ def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos: int):
     k = rope(k, posv, cfg.rope_theta)
     cache_k[:, :, pos:pos + 1] = k.to(cache_k.dtype).transpose(1, 2)
     cache_v[:, :, pos:pos + 1] = v.to(cache_v.dtype).transpose(1, 2)
-    out = cache_attend(q, cache_k, cache_v, cfg, pos)
+    out = cache_attend(q, cache_k, cache_v, cfg, pos, window)
     return out.reshape(B, 1, H * dh) @ p["wo"], cache_k, cache_v
 
 
-def cache_attend(q, cache_k, cache_v, cfg: ArchConfig, pos: int):
+def cache_attend(q, cache_k, cache_v, cfg: ArchConfig, pos: int,
+                 window=None):
     """q: (B,1,H,dh); cache: (B,kv,S,dh) -> (B,1,H,dh); keys past ``pos``
-    masked.  The reference's ``window`` and ``window_slice`` wait with
-    windowed attention (ROADMAP Queue 1 item 14b)."""
+    masked, and with a window those ``window`` or more behind it.  A cache
+    longer than the window is read only in its window-sized slice from
+    ``clip(pos - window + 1, 0, S - window)`` (the reference's
+    ``window_slice``): ``pos`` is a host int, so the slice is a view."""
     B, _, H, dh = q.shape
     kv = cache_k.shape[1]
     rep = H // kv
     qh = scaled(q.reshape(B, kv, rep, dh), dh ** -0.5)
     S = cache_k.shape[2]
+    base = 0
+    if window is not None and S > window:
+        base = min(max(pos - window + 1, 0), S - window)
+        cache_k = cache_k[:, :, base:base + window]
+        cache_v = cache_v[:, :, base:base + window]
+        S = window
     logits = torch.einsum("bkrd,bksd->bkrs", qh, cache_k).to(F32)
     logits = softcap(logits, cfg.attn_softcap)
-    ok = torch.arange(S, device=q.device) <= pos
+    jpos = base + torch.arange(S, device=q.device)
+    ok = jpos <= pos
+    if window is not None:
+        ok &= jpos > pos - window
     logits = torch.where(ok[None, None, None], logits, NEG)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkrs,bksd->bkrd", p.to(cache_v.dtype), cache_v)
     return out.reshape(B, 1, H, dh)
+
+
+def cross_attention(p, x, src_k, src_v, cfg: ArchConfig):
+    """x: (B,S,D) attending to precomputed source k/v (B,kv,T,dh): no
+    mask, no softcap, no RoPE, as in the reference."""
+    B, S, D = x.shape
+    H, kv, dh = cfg.n_heads, cfg.n_kv, cfg.dh
+    q = (x @ p["wq"]).reshape(B, S, H, dh)
+    qh = scaled(q.reshape(B, S, kv, H // kv, dh), dh ** -0.5)
+    logits = torch.einsum("bskrd,bktd->bskrt", qh, src_k).to(F32)
+    pr = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bskrt,bktd->bskrd", pr.to(src_v.dtype), src_v)
+    return out.reshape(B, S, H * dh) @ p["wo"]
+
+
+def xattn_kv(p, src, cfg: ArchConfig):
+    """Cross-attention k/v (B,kv,T,dh) from source embeddings (B,T,D)."""
+    B, T, D = src.shape
+    kv, dh = cfg.n_kv, cfg.dh
+    k = (src @ p["wk"]).reshape(B, T, kv, dh)
+    v = (src @ p["wv"]).reshape(B, T, kv, dh)
+    return k.transpose(1, 2), v.transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------

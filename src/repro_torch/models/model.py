@@ -1,6 +1,8 @@
 """Model facade (counterpart of ``repro/models/model.py``) for serving:
 ``init``, ``prefill_step`` and ``serve_step`` of an attention + MLP
-language model on one device.
+language model on one device, with an encoder or cross-attention to a
+source (``src``: image-token or audio-frame embeddings, (B, T, D)) where
+the arch has them.
 
 The reference's step functions take the params pytree; here ``Model`` is
 an ``nn.Module`` that holds them (``init`` draws them from an explicit
@@ -62,23 +64,39 @@ class Model(nn.Module):
         logits = (h @ self._head()).to(F32)
         return L.softcap(logits, self.cfg.final_softcap)
 
+    def _src(self, src):
+        return None if src is None else src.to(self.device).to(self.dtype)
+
     # ---------------------------------------------------------- prefill step
     @torch.no_grad()
-    def prefill_step(self, tokens):
-        """tokens: (B, P) int -> (last-position logits (B, V) float32, the
-        cache: one {"k", "v"} of (B, kv, P, dh) per layer)."""
+    def prefill_step(self, tokens, src=None):
+        """tokens: (B, P) int; src: (B, T, D) source embeddings, read by a
+        vlm or audio arch (the encoder's input where it has one) ->
+        (last-position logits (B, V) float32, the cache: one {"k", "v"} of
+        (B, kv, P, dh) per attention layer, {} per cross-attention one)."""
+        cfg = self.cfg
         x = self._embed(tokens.to(self.device))
-        h, caches = T.backbone_full(self.cfg, self.params, x, self.backend,
-                                    collect_cache=True)
+        src = self._src(src) if cfg.family in ("vlm", "audio") else None
+        if cfg.enc_layers:
+            if src is None:
+                raise ValueError(f"{cfg.name}'s encoder needs src")
+            src = T.encoder_pass(cfg, self.params, src, self.backend)
+        h, caches = T.backbone_full(cfg, self.params, x, self.backend,
+                                    collect_cache=True, src=src)
         return self._logits(h[:, -1:, :])[:, 0], caches
 
     # ------------------------------------------------------------ serve step
     @torch.no_grad()
-    def serve_step(self, cache, token, pos: int):
+    def serve_step(self, cache, token, pos: int, src=None,
+                   long_mode: bool = False):
         """token: (B, 1) int; pos: the write index.  The cache is updated
-        in place and returned."""
+        in place and returned.  The xattn layers attend to ``src`` as it
+        is given, not to the encoder's output: the reference's
+        ``serve_step`` does the same.  ``long_mode`` windows the global
+        layers of an arch with an attention softcap too."""
         x = self._embed(token.to(self.device))
-        h, cache = T.backbone_decode(self.cfg, self.params, x, cache, pos)
+        h, cache = T.backbone_decode(self.cfg, self.params, x, cache, pos,
+                                     self._src(src), long_mode)
         return self._logits(h)[:, 0], cache
 
 
@@ -103,7 +121,8 @@ def params_from_jax(cfg: ArchConfig, tree, dtype=None, device=None,
         param.copy_(src.to(param.dtype))
 
     want = {"embed", "final_norm", "units"} | (
-        set() if cfg.tie_embeddings else {"lm_head"})
+        set() if cfg.tie_embeddings else {"lm_head"}) | (
+        {"enc_units", "enc_norm"} if cfg.enc_layers else set())
     if set(tree) != want:
         raise KeyError(f"params tree has {sorted(tree)}, expected "
                        f"{sorted(want)}")
@@ -112,18 +131,23 @@ def params_from_jax(cfg: ArchConfig, tree, dtype=None, device=None,
         put(params.final_norm, tree["final_norm"], "final_norm")
         if not cfg.tie_embeddings:
             put(params.lm_head, tree["lm_head"], "lm_head")
-        units = tree["units"]
-        n = len(cfg.pattern)
-        for r in range(cfg.repeat):
-            for i in range(n):
-                layer = params.layers[r * n + i]
-                for part, leaves in units[i].items():
-                    if set(leaves) != set(layer[part].keys()):
-                        raise KeyError(f"units[{i}][{part!r}] has "
-                                       f"{sorted(leaves)}, expected "
-                                       f"{sorted(layer[part].keys())}")
-                    for name, arr in leaves.items():
-                        put(layer[part][name], np.asarray(arr)[r],
-                            f"units[{i}][{part!r}][{name!r}][{r}]")
+        stacks = [("units", params.layers, cfg.repeat)]
+        if cfg.enc_layers:
+            put(params.enc_norm, tree["enc_norm"], "enc_norm")
+            stacks.append(("enc_units", params.enc_layers, cfg.enc_layers))
+        for key, layers, repeat in stacks:
+            units = tree[key]
+            n = len(units)
+            for r in range(repeat):
+                for i in range(n):
+                    layer = layers[r * n + i]
+                    for part, leaves in units[i].items():
+                        if set(leaves) != set(layer[part].keys()):
+                            raise KeyError(f"{key}[{i}][{part!r}] has "
+                                           f"{sorted(leaves)}, expected "
+                                           f"{sorted(layer[part].keys())}")
+                        for name, arr in leaves.items():
+                            put(layer[part][name], np.asarray(arr)[r],
+                                f"{key}[{i}][{part!r}][{name!r}][{r}]")
     model.params = params
     return model

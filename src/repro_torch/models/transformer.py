@@ -1,6 +1,6 @@
 """Backbone assembly (counterpart of ``repro/models/transformer.py``) for
-attention + MLP models: init, the full-sequence pass (prefill) and the
-one-token pass (decode) over a KV cache.
+attention + MLP models: init, the encoder pass, the full-sequence pass
+(prefill) and the one-token pass (decode) over a KV cache.
 
 The reference stacks each pattern position's weights over the repeat
 axis and ``lax.scan``s the unit; here the layers are an ``nn.ModuleList``
@@ -9,11 +9,22 @@ run by a Python loop, unit r's pattern position i at index
 ``"mixer"`` and (unless the ffn is ``"none"``) an ``"ffn"``
 ``ParameterDict``.
 
-Cache (decode): a list with one ``{"k", "v"}`` entry per layer, each
-(B, kv, S, dh).
+Mixers: ``attn`` (causal), ``attn_local`` (causal within
+``cfg.local_window`` keys), ``attn_bidir`` (the encoder's: not causal, no
+RoPE) and ``xattn`` (cross-attention to the source: the encoder's output
+in prefill; in decode the raw ``src``, as the reference's ``serve_step``
+passes it).  ``long_mode`` decode windows the global layers of an arch
+with an attention softcap too (the reference's long-context path).  An
+arch with ``enc_layers`` has an encoder of that many ``attn_bidir`` +
+``mlp`` layers (``Params.enc_layers``) and its final norm
+(``Params.enc_norm``).
 
-The slice ports mixer ``attn`` and ffn ``mlp``; every other mixer or ffn
-raises ``NotImplementedError`` naming the ROADMAP item it waits for.
+Cache (decode): a list with one entry per layer: ``{"k", "v"}`` of
+(B, kv, S, dh) for ``attn`` and ``attn_local``, ``{}`` for ``xattn`` and
+``attn_bidir``.
+
+The SSM mixers and the MoE ffn raise ``NotImplementedError`` naming the
+ROADMAP item they wait for.
 """
 from __future__ import annotations
 
@@ -26,19 +37,19 @@ from repro_torch.configs.archs import ArchConfig
 from repro_torch.models import layers as L
 
 WAITING = {
-    "attn_local": "windowed attention (ROADMAP Queue 1 item 14b)",
     "moe": "mixture-of-experts layers (ROADMAP Queue 1 item 14c)",
     "mamba": "the SSM mixers (ROADMAP Queue 1 item 14d)",
     "mlstm": "the SSM mixers (ROADMAP Queue 1 item 14d)",
     "slstm": "the SSM mixers (ROADMAP Queue 1 item 14d)",
-    "attn_bidir": "encoders and cross-attention (ROADMAP Queue 1 item 14e)",
-    "xattn": "encoders and cross-attention (ROADMAP Queue 1 item 14e)",
 }
+ATTN = ("attn", "attn_local", "attn_bidir")
+MIXERS = ATTN + ("xattn",)
+ENC_SPEC = {"mixer": "attn_bidir", "ffn": "mlp"}
 
 
 def check_spec(spec: dict) -> None:
     """Raise unless the layer's mixer and ffn are ported."""
-    for part, ok in (("mixer", ("attn",)), ("ffn", ("mlp", "none"))):
+    for part, ok in (("mixer", MIXERS), ("ffn", ("mlp", "none"))):
         kind = spec[part]
         if kind not in ok:
             if kind in WAITING:
@@ -54,14 +65,19 @@ def layer_specs(cfg: ArchConfig) -> tuple:
 
 class Params(nn.Module):
     """The reference's params pytree as a module: ``embed``,
-    ``final_norm``, ``lm_head`` (unless tied) and ``layers``."""
+    ``final_norm``, ``lm_head`` (unless tied), ``layers`` and, with an
+    encoder, ``enc_layers`` (the reference's ``enc_units``) and
+    ``enc_norm``."""
 
-    def __init__(self, embed, final_norm, layers, lm_head=None):
+    def __init__(self, embed, final_norm, layers, lm_head=None,
+                 enc_layers=None, enc_norm=None):
         super().__init__()
         self.embed = embed
         self.final_norm = final_norm
         self.layers = layers
         self.lm_head = lm_head
+        self.enc_layers = enc_layers
+        self.enc_norm = enc_norm
 
 
 # ---------------------------------------------------------------------------
@@ -85,10 +101,6 @@ def init_unit(pattern, cfg: ArchConfig, dtype, device, generator) -> list:
 def init_params(cfg: ArchConfig, dtype=torch.bfloat16, device=None,
                 generator=None) -> Params:
     """Weights drawn from ``generator`` (None: uninitialised, to load)."""
-    if cfg.enc_layers:
-        raise NotImplementedError(
-            f"the encoder of {cfg.name} is not ported yet: it waits for "
-            f"{WAITING['attn_bidir']}")
     D, V = cfg.d_model, cfg.vocab
     embed = L._init((V, D), generator, device, scale=0.02, dtype=dtype)
     layers = nn.ModuleList(
@@ -97,7 +109,14 @@ def init_params(cfg: ArchConfig, dtype=torch.bfloat16, device=None,
     lm_head = None
     if not cfg.tie_embeddings:
         lm_head = L._init((D, V), generator, device, scale=0.02, dtype=dtype)
-    return Params(embed, L._zeros((D,), dtype, device), layers, lm_head)
+    enc_layers = enc_norm = None
+    if cfg.enc_layers:
+        enc_layers = nn.ModuleList(
+            init_layer(ENC_SPEC, cfg, dtype, device, generator)
+            for _ in range(cfg.enc_layers))
+        enc_norm = L._zeros((D,), dtype, device)
+    return Params(embed, L._zeros((D,), dtype, device), layers, lm_head,
+                  enc_layers, enc_norm)
 
 
 # ---------------------------------------------------------------------------
@@ -111,29 +130,54 @@ def _ffn(p, spec, x):
     return x
 
 
+def _cross(pm, x, cfg: ArchConfig, src):
+    """x plus the cross-attention of its norm to ``src`` (B, T, D)."""
+    if src is None:
+        raise ValueError(f"{cfg.name}'s xattn layers need the source "
+                         f"embeddings: pass src")
+    sk, sv = L.xattn_kv(pm, src, cfg)
+    return x + L.cross_attention(pm, L.rms_norm(x, pm["ln"]), sk, sv, cfg)
+
+
 def apply_layer_full(p, spec, x, cfg: ArchConfig, positions, backend: str,
-                     collect_cache: bool):
+                     collect_cache: bool, src=None):
     """Returns (x, cache_entry)."""
+    m = spec["mixer"]
     pm = p["mixer"]
-    att, k, v = L.attention_full(pm, L.rms_norm(x, pm["ln"]), cfg, positions,
-                                 True, backend)
     cache = {}
-    if collect_cache:
-        cache = {"k": k.transpose(1, 2).contiguous(),
-                 "v": v.transpose(1, 2).contiguous()}
-    if "post_ln" in pm:
-        att = L.rms_norm(att, pm["post_ln"])
-    return _ffn(p, spec, x + att), cache
+    if m in ATTN:
+        window = cfg.local_window if m == "attn_local" else None
+        att, k, v = L.attention_full(pm, L.rms_norm(x, pm["ln"]), cfg,
+                                     positions, m != "attn_bidir", backend,
+                                     window)
+        if collect_cache:
+            cache = {"k": k.transpose(1, 2).contiguous(),
+                     "v": v.transpose(1, 2).contiguous()}
+        if "post_ln" in pm:
+            att = L.rms_norm(att, pm["post_ln"])
+        x = x + att
+    else:                                                      # xattn
+        x = _cross(pm, x, cfg, src)
+    return _ffn(p, spec, x), cache
 
 
-def apply_layer_decode(p, spec, x, cfg: ArchConfig, cache, pos: int):
+def apply_layer_decode(p, spec, x, cfg: ArchConfig, cache, pos: int,
+                       src=None, long_mode: bool = False):
+    m = spec["mixer"]
     pm = p["mixer"]
-    h = L.rms_norm(x, pm["ln"])
-    att, ck, cv = L.attention_decode(pm, h, cfg, cache["k"], cache["v"],
-                                     pos)
-    if "post_ln" in pm:
-        att = L.rms_norm(att, pm["post_ln"])
-    return _ffn(p, spec, x + att), {"k": ck, "v": cv}
+    if m in ("attn", "attn_local"):
+        window = cfg.local_window if (
+            m == "attn_local" or (long_mode and cfg.attn_softcap is not None)
+        ) else None
+        att, ck, cv = L.attention_decode(pm, L.rms_norm(x, pm["ln"]), cfg,
+                                         cache["k"], cache["v"], pos, window)
+        if "post_ln" in pm:
+            att = L.rms_norm(att, pm["post_ln"])
+        x = x + att
+        cache = {"k": ck, "v": cv}
+    elif m == "xattn":
+        x = _cross(pm, x, cfg, src)
+    return _ffn(p, spec, x), cache
 
 
 # ---------------------------------------------------------------------------
@@ -142,6 +186,8 @@ def apply_layer_decode(p, spec, x, cfg: ArchConfig, cache, pos: int):
 
 def init_cache_entry(spec, cfg: ArchConfig, B, S, dtype, device):
     check_spec(spec)
+    if spec["mixer"] not in ("attn", "attn_local"):
+        return {}
     kv, dh = cfg.n_kv, cfg.dh
     return {"k": torch.zeros((B, kv, S, dh), dtype=dtype, device=device),
             "v": torch.zeros((B, kv, S, dh), dtype=dtype, device=device)}
@@ -157,22 +203,35 @@ def init_cache(cfg: ArchConfig, B, S, dtype=torch.bfloat16,
 # backbone passes
 # ---------------------------------------------------------------------------
 
+def encoder_pass(cfg: ArchConfig, params: Params, src_embeds, backend: str):
+    """The encoder over the source embeddings (B, T, D): ``enc_layers``
+    bidirectional attention + MLP layers, then ``enc_norm``."""
+    positions = torch.arange(src_embeds.shape[1], device=src_embeds.device)
+    x = src_embeds
+    for p in params.enc_layers:
+        x, _ = apply_layer_full(p, ENC_SPEC, x, cfg, positions, backend,
+                                False)
+    return L.rms_norm(x, params.enc_norm)
+
+
 def backbone_full(cfg: ArchConfig, params: Params, x, backend: str,
-                  collect_cache: bool):
-    """Full-sequence pass (prefill). x: (B,S,D) embedded."""
+                  collect_cache: bool, src=None):
+    """Full-sequence pass (prefill). x: (B,S,D) embedded; ``src`` (B,T,D)
+    for the xattn layers."""
     positions = torch.arange(x.shape[1], device=x.device)
     caches = []
     for p, spec in zip(params.layers, layer_specs(cfg)):
         x, c = apply_layer_full(p, spec, x, cfg, positions, backend,
-                                collect_cache)
+                                collect_cache, src)
         caches.append(c)
     return L.rms_norm(x, params.final_norm), caches
 
 
-def backbone_decode(cfg: ArchConfig, params: Params, x, cache, pos: int):
+def backbone_decode(cfg: ArchConfig, params: Params, x, cache, pos: int,
+                    src=None, long_mode: bool = False):
     """Single-token pass. x: (B,1,D); one cache entry per layer."""
     new_cache = []
     for p, spec, c in zip(params.layers, layer_specs(cfg), cache):
-        x, nc = apply_layer_decode(p, spec, x, cfg, c, pos)
+        x, nc = apply_layer_decode(p, spec, x, cfg, c, pos, src, long_mode)
         new_cache.append(nc)
     return L.rms_norm(x, params.final_norm), new_cache

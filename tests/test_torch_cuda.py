@@ -560,14 +560,14 @@ def test_flash_kernel_matches_plain(dev, bh, S, dh, causal, dtype, cap):
         assert err < tol, err
 
 
-def bf16_close(got, q, k, v, causal, cap):
+def bf16_close(got, q, k, v, causal, cap, window=None):
     """A bf16 output of the kernel against its plain version: flat 3e-2,
     and relative to the values 2^-7 * A + 2^-6 * |want| elementwise (A the
     attention of |v|: twice P's bf16 rounding against each version's own
     running max plus an output ulp) and 1e-2 normwise."""
-    want = TF.flash_attention_plain(q, k, v, causal=causal, softcap=cap)
-    A = TF.flash_attention_plain(q, k, v.abs(), causal=causal,
-                                 softcap=cap).double()
+    kw = dict(causal=causal, softcap=cap, window=window)
+    want = TF.flash_attention_plain(q, k, v, **kw)
+    A = TF.flash_attention_plain(q, k, v.abs(), **kw).double()
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16 and got.shape == q.shape
     d, w = (got.double() - want.double()).abs(), want.double()
@@ -607,6 +607,53 @@ def test_flash_kernel_keeps_heads_apart(dev, dh):
         keep = [0, 2]
         assert bool(torch.isfinite(got[keep]).all())
         bf16_close(got[keep], q[keep], k[keep], v[keep], causal, None)
+
+
+# the window on both kernels: the tensor cores (bf16, dh 64 and 128) and
+# the CUDA cores (bf16 dh 256, gemma2's width, and float32).  S = 300 and
+# 1,000 are ragged; at S = 640 a window of 128 leaves the last row of each
+# 128-row q tile past the first its whole first KV tile masked, and on
+# the CUDA cores (16-row tiles of 32 keys) a window of 127 does the same;
+# windows of 200 and 300 give a q tile a second lower-edge KV tile below
+# its diagonal one (the masked tiles inside the tensor-core kernel's
+# loop).
+WINDOW_PATHS = [(torch.bfloat16, 64), (torch.bfloat16, 128),
+                (torch.bfloat16, 256), (torch.float32, 128)]
+
+
+@pytest.mark.parametrize("dtype,dh", WINDOW_PATHS)
+@pytest.mark.parametrize("S,window,cap", [
+    (300, 1, None), (300, 127, None), (300, 128, None), (300, 129, None),
+    (300, 300, None), (300, 5000, None), (640, 128, None),
+    (640, 127, 30.0), (640, 256, 50.0), (640, 200, None),
+    (1000, 300, 50.0)])
+def test_flash_window_matches_plain(dev, dtype, dh, S, window, cap):
+    rng = np.random.default_rng(S * window + dh)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, S, dh)).astype(
+        np.float32)).to(dev, dtype) for _ in range(3))
+    kw = dict(causal=True, softcap=cap, window=window)
+    got = launched(TF.LAUNCHES, "flash_attention",
+                   lambda: TF.flash_attention(q, k, v, **kw))
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    if dtype == torch.bfloat16:
+        bf16_close(got, q, k, v, True, cap, window)
+    else:
+        tol = dict(rtol=1e-4, atol=1e-5) if cap else dict(rtol=0, atol=2e-5)
+        for want in (TF.flash_attention_plain(q, k, v, **kw),
+                     flash_ref(q, k, v, **kw)):
+            torch.testing.assert_close(got, want, **tol)
+    if window >= S:       # no key is that far behind: the causal result
+        assert torch.equal(got, TF.flash_attention(q, k, v, causal=True,
+                                                   softcap=cap))
+
+
+def test_flash_window_refused_without_causal(dev):
+    q = torch.zeros((2, 64, 64), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="causal"):
+        TF.flash_attention(q, q, q, causal=False, window=8)
+    with pytest.raises(ValueError, match="positive int"):
+        TF.flash_attention(q, q, q, window=0)
 
 
 def test_flash_wrapper_refuses_bad_inputs(dev):
@@ -653,6 +700,79 @@ def test_lm_prefill_launches_flash_once_per_layer(dev):
     ref, _ = model.prefill_step(prompts)
     assert TF.LAUNCHES["flash_attention"] == 2
     assert float((logits - ref).abs().max()) <= 0.25 * float(ref.std())
+
+
+def test_gemma2_prefill_launches_windowed_and_global(dev):
+    """gemma2-9b at full width cut to one unit (a local and a global
+    layer), its window cut to 128 keys so that a prompt of 300 is windowed:
+    prefill launches the kernel once a layer (windowed, then global),
+    decode and long_mode decode never; the logits stay near the torch
+    backend's, as in the test above."""
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_arch("gemma2-9b"), n_layers=2, repeat=1,
+                              local_window=128)
+    model = Model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model.init(gen)
+    prompts = torch.randint(0, cfg.vocab, (2, 300), generator=gen,
+                            device=dev)
+    windows = []
+    real = TF.flash_attention
+
+    def seen(q, k, v, **kw):
+        windows.append(kw.get("window"))
+        return real(q, k, v, **kw)
+
+    TF.reset_launches()
+    TF.flash_attention = seen
+    try:
+        logits, caches = serve.prefill(model, prompts, 304)
+    finally:
+        TF.flash_attention = real
+    assert TF.LAUNCHES["flash_attention"] == 2 and windows == [128, None]
+    for long_mode in (False, True):
+        toks = serve.decode(model, logits, [dict(c) for c in caches], 300,
+                            4, long_mode=long_mode)
+        assert toks.shape == (2, 4) and bool(((toks >= 0) &
+                                              (toks < cfg.vocab)).all())
+    assert TF.LAUNCHES["flash_attention"] == 2
+    model.backend = "torch"
+    ref, _ = model.prefill_step(prompts)
+    assert TF.LAUNCHES["flash_attention"] == 2
+    assert float((logits - ref).abs().max()) <= 0.25 * float(ref.std())
+
+
+def test_llama_vision_serve_on_card_matches_torch(dev):
+    """llama-3.2-vision-11b reduced, float32, on the card: the cuda
+    backend (the kernel on the CUDA cores, dh 16) against the torch
+    backend on the same weights and image tokens: prefill logits within
+    1e-4, the same greedy tokens, one launch per self-attention layer."""
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    cfg = reduced(get_arch("llama-3.2-vision-11b"))
+    model = Model(cfg, dtype=torch.float32, device=dev)
+    model.init(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(5)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 12))).to(dev)
+    src = torch.from_numpy(rng.standard_normal(
+        (2, cfg.n_img_tokens, cfg.d_model)).astype(np.float32)).to(dev)
+    n_attn = sum(s["mixer"] == "attn" for s in cfg.pattern) * cfg.repeat
+    out = {}
+    for backend in ("cuda", "torch"):
+        model.backend = backend
+        TF.reset_launches()
+        logits, caches = serve.prefill(model, prompts, 20, src)
+        assert TF.LAUNCHES["flash_attention"] == \
+            (n_attn if backend == "cuda" else 0)
+        out[backend] = (logits, serve.decode(model, logits, caches, 12, 8,
+                                             src))
+    torch.testing.assert_close(out["cuda"][0], out["torch"][0], rtol=0,
+                               atol=1e-4)
+    assert torch.equal(out["cuda"][1], out["torch"][1])
 
 
 # ---------------------------------------------------------------------------

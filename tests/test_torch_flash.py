@@ -96,3 +96,94 @@ def test_flash_plain_at_kernel_tile_ragged(dtype, tol, causal):
     (jq, jk, jv), (q, k, v) = inputs(13, 200, 128, dtype)
     got = TF.flash_attention_plain(q, k, v, causal=causal, bk=128)
     assert err(got, R.flash_ref(jq, jk, jv, causal=causal)) < tol
+
+
+# ---------------------------------------------------------------------------
+# the window (local attention).  The Pallas kernel has none, so the plain
+# version and the O(S^2) oracle are held to the reference model's chunked
+# attention, ``repro.models.layers.flash_attention(..., window=W)``, which
+# masks i - j >= W inside its causal branch, after the softcap.
+# ---------------------------------------------------------------------------
+
+def model_flash(jq, jk, jv, window, softcap):
+    """repro's chunked attention on (BH, S, dh) inputs, as (1, S, BH, dh)."""
+    import dataclasses
+    from repro.configs.archs import get_arch
+    from repro.models import layers as RL
+    cfg = dataclasses.replace(get_arch("gemma2-9b"), attn_softcap=softcap)
+    heads = lambda x: jnp.swapaxes(x, 0, 1)[None]
+    S, dh = jq.shape[1], jq.shape[2]
+    o = RL.flash_attention(heads(jq), heads(jk), heads(jv), cfg,
+                           jnp.arange(S), True, window, scale=dh ** -0.5)
+    return jnp.swapaxes(o[0], 0, 1)
+
+
+# S, dh, window, softcap, plain's block: W = 1; W equal to and one past a
+# block; W >= S; a softcap; at S = 384 and W = 128 the rows past 254 have
+# their whole first block (and more) masked, and row 383 its first two
+WINDOW_CASES = [(200, 32, 1, None, 64), (256, 32, 128, None, 128),
+                (256, 32, 129, None, 128), (200, 32, 200, None, 64),
+                (130, 32, 500, None, 512), (256, 64, 100, 30.0, 128),
+                (384, 32, 128, None, 128), (384, 32, 128, 50.0, 64)]
+
+
+@pytest.mark.parametrize("S,dh,window,cap,bk", WINDOW_CASES)
+def test_flash_plain_window_matches_model_attention(S, dh, window, cap, bk):
+    (jq, jk, jv), (q, k, v) = inputs(S + window, S, dh, "float32")
+    want = model_flash(jq, jk, jv, window, cap)
+    kw = dict(causal=True, softcap=cap, window=window)
+    got = TF.flash_attention(q, k, v, **kw)             # CPU: plain
+    assert got.dtype == q.dtype and got.shape == q.shape
+    assert bool(torch.isfinite(got).all())
+    for out in (got, TF.flash_attention_plain(q, k, v, bk=bk, **kw),
+                flash_ref(q, k, v, **kw)):
+        assert err(out, want) < 1e-5
+
+
+def test_flash_plain_window_bf16_and_no_op_window():
+    """bf16 within 3e-2 of the model's attention; a window of S or more
+    changes no bit of the causal result."""
+    (jq, jk, jv), (q, k, v) = inputs(5, 256, 64, "bfloat16")
+    got = TF.flash_attention_plain(q, k, v, window=64, bk=128)
+    assert err(got, model_flash(jq, jk, jv, 64, None)) < 3e-2
+    for w in (256, 257, 10 ** 6):
+        assert torch.equal(TF.flash_attention_plain(q, k, v, window=w),
+                           TF.flash_attention_plain(q, k, v))
+
+
+def test_flash_window_refused_without_causal_or_positive_int():
+    (_, _, _), (q, k, v) = inputs(1, 16, 16, "float32")
+    for fn in (TF.flash_attention, TF.flash_attention_plain, flash_ref):
+        with pytest.raises(ValueError, match="causal"):
+            fn(q, k, v, causal=False, window=4)
+        for bad in (0, -1, 2.0, True):
+            with pytest.raises(ValueError, match="positive int"):
+                fn(q, k, v, window=bad)
+
+
+# tools/flash_variants.py against the flash kernel's source as it stands:
+# every planted fault and design copy must match it once and change it,
+# so a tool left behind by a change to the kernel fails here, not on the
+# card.
+def _flash_variants():
+    import importlib.util
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location(
+        "flash_variants", root / "tools" / "flash_variants.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod, (root / "src" / "repro_torch" / "csrc" /
+                 "flash_attention.cu").read_text()
+
+
+FV, FLASH_CU = _flash_variants()
+
+
+@pytest.mark.parametrize("table,name", [
+    *((FV.FAULTS, name) for name in FV.FAULTS),
+    *((FV.ABLATIONS, name) for name in FV.ABLATIONS)])
+def test_flash_variant_applies_to_the_current_source(table, name):
+    subs = table[name]
+    copy = FV.planted(FLASH_CU, subs)
+    assert (copy != FLASH_CU) == bool(subs)

@@ -7,7 +7,12 @@ prompts made with numpy from a seed.
   decode steps with identical tokens and logits within 1e-4 (both
   backends: ``torch`` computes the reference's chunked attention,
   ``cuda`` on the CPU runs the flash kernel's plain version; readings
-  are ~4e-7).
+  are ~4e-7).  With the reduced configs' window of 8 keys, a prompt of
+  12 windows gemma2's local layers in prefill, and decode past position
+  8 reads the window's slice of the cache (``long_mode``: the global
+  layers too); whisper runs its encoder over a source of 16 frames and
+  llama-3.2-vision cross-attends to 8 image tokens, each ``src`` drawn
+  with numpy from a seed.
 * bf16: logits within 2e-2.  The two frameworks round bf16 at other
   points (XLA fuses elementwise chains in float32, PyTorch rounds each
   op), and ``cuda`` keeps a float32 attention accumulator where the
@@ -35,21 +40,35 @@ B, P, G = 2, 12, 8
 _REF = {}
 
 
-def reference(arch, dtype):
+def source(cfg):
+    """The source embeddings (B, T, D) of a vlm or audio arch, else None."""
+    T = {"vlm": cfg.n_img_tokens, "audio": cfg.enc_seq}.get(cfg.family)
+    if T is None:
+        return None
+    return np.random.default_rng(5).standard_normal(
+        (B, T, cfg.d_model)).astype(np.float32)
+
+
+def reference(arch, dtype, long_mode=False):
     """repro's prefill logits, then G - 1 greedy serve steps: (params as
-    numpy, prompts, [logits per step], [token per step])."""
-    key = (arch, dtype)
+    numpy, prompts, src, [logits per step], [token per step])."""
+    key = (arch, dtype, long_mode)
     if key not in _REF:
         cfg = r_reduced(r_get_arch(arch))
         model = RModel(cfg=cfg, dtype=getattr(jnp, dtype))
         params = model.init(jax.random.PRNGKey(1))
         prompts = np.random.default_rng(0).integers(
             0, cfg.vocab, (B, P)).astype(np.int32)
-        logits, caches = jax.jit(model.prefill_step)(
-            params, {"tokens": jnp.asarray(prompts)})
+        src = source(cfg)
+        batch = {"tokens": jnp.asarray(prompts)}
+        if src is not None:
+            batch["src"] = jnp.asarray(src)
+        logits, caches = jax.jit(model.prefill_step)(params, batch)
         caches = jax.tree.map(lambda x: jnp.pad(
             x, ((0, 0),) * 3 + ((0, G),) + ((0, 0),)), caches)
-        step = jax.jit(lambda p, c, t, pos: model.serve_step(p, c, t, pos))
+        jsrc = None if src is None else jnp.asarray(src)
+        step = jax.jit(lambda p, c, t, pos: model.serve_step(
+            p, c, t, pos, src=jsrc, long_mode=long_mode))
         tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
         out_l, out_t = [np.asarray(logits)], [np.asarray(tok)]
         for i in range(G - 1):
@@ -57,37 +76,54 @@ def reference(arch, dtype):
             tok = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
             out_l.append(np.asarray(logits))
             out_t.append(np.asarray(tok))
-        _REF[key] = (jax.tree.map(np.asarray, params), prompts, out_l,
+        _REF[key] = (jax.tree.map(np.asarray, params), prompts, src, out_l,
                      out_t)
     return _REF[key]
 
 
-@pytest.mark.parametrize("backend", ["torch", "cuda"])
-@pytest.mark.parametrize("arch", ["starcoder2-7b", "qwen1.5-32b"])
-def test_serving_matches_reference_f32(arch, backend):
-    tree, prompts, ref_l, ref_t = reference(arch, "float32")
+def check_serving_f32(arch, backend, long_mode=False):
+    tree, prompts, src, ref_l, ref_t = reference(arch, "float32", long_mode)
     model = params_from_jax(reduced(get_arch(arch)), tree, device="cpu",
                             backend=backend)
     assert model.dtype == torch.float32
-    logits, caches = tserve.prefill(model, torch.from_numpy(prompts), P + G)
+    src = None if src is None else torch.from_numpy(src)
+    logits, caches = tserve.prefill(model, torch.from_numpy(prompts), P + G,
+                                    src)
     np.testing.assert_allclose(logits.numpy(), ref_l[0], rtol=0, atol=1e-4)
     empty = TT.init_cache(model.cfg, B, P + G, torch.float32, "cpu")
     assert [{n: x.shape for n, x in c.items()} for c in empty] == \
         [{n: x.shape for n, x in c.items()} for c in caches]
-    toks = tserve.decode(model, logits, caches, P, G).numpy()
+    toks = tserve.decode(model, logits, caches, P, G, src, long_mode).numpy()
     np.testing.assert_array_equal(toks, np.concatenate(ref_t, axis=1))
     # the same steps once more, each step's logits against the reference
-    logits, caches = tserve.prefill(model, torch.from_numpy(prompts), P + G)
+    logits, caches = tserve.prefill(model, torch.from_numpy(prompts), P + G,
+                                    src)
     for i in range(G - 1):
         logits, caches = model.serve_step(
-            caches, torch.from_numpy(toks[:, i:i + 1]), P + i)
+            caches, torch.from_numpy(toks[:, i:i + 1]), P + i, src,
+            long_mode)
         np.testing.assert_allclose(logits.numpy(), ref_l[i + 1], rtol=0,
                                    atol=1e-4)
 
 
 @pytest.mark.parametrize("backend", ["torch", "cuda"])
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "qwen1.5-32b",
+                                  "gemma2-9b", "whisper-large-v3",
+                                  "llama-3.2-vision-11b"])
+def test_serving_matches_reference_f32(arch, backend):
+    check_serving_f32(arch, backend)
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
+def test_long_mode_serving_matches_reference_f32(backend):
+    """gemma2's long_mode decode: its global layers (softcapped) read the
+    window's slice of the cache too."""
+    check_serving_f32("gemma2-9b", backend, long_mode=True)
+
+
+@pytest.mark.parametrize("backend", ["torch", "cuda"])
 def test_serving_matches_reference_bf16(backend):
-    tree, prompts, ref_l, ref_t = reference("starcoder2-7b", "bfloat16")
+    tree, prompts, _, ref_l, ref_t = reference("starcoder2-7b", "bfloat16")
     model = params_from_jax(reduced(get_arch("starcoder2-7b")), tree,
                             device="cpu", backend=backend)
     assert model.dtype == torch.bfloat16
@@ -144,14 +180,15 @@ def test_cuda_backend_on_cpu_runs_the_plain_kernel():
     assert TF.LAUNCHES == {"flash_attention": 0}
 
 
-SERVED = ("granite-20b", "qwen1.5-32b", "starcoder2-7b")
+SERVED = ("gemma2-9b", "granite-20b", "llama-3.2-vision-11b", "qwen1.5-32b",
+          "starcoder2-7b", "whisper-large-v3")
 
 
 @pytest.mark.parametrize("arch", sorted(REGISTRY))
 def test_layers_outside_the_slice_raise(arch):
-    """The dense attention + MLP archs build; every other mixer or ffn
-    (windowed attention, MoE, SSMs, cross-attention, encoders) raises,
-    naming its ROADMAP item."""
+    """The attention archs build (causal, windowed, encoder and
+    cross-attention mixers; MLP ffns); every other mixer or ffn (MoE,
+    SSMs) raises, naming its ROADMAP item."""
     cfg = reduced(get_arch(arch))
     if arch in SERVED:
         Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))

@@ -12,12 +12,14 @@ with the source's own flags, and each is put in the wrapper's place in
 turn.
 
 ``faults``: an unchanged control copy must pass
-``chip_smoke.check_flash`` and every planted fault must fail it; for each
-copy the script prints the max |d| against the plain version at every
-bf16 case of ``chip_smoke.FLASH_CASES`` that reaches the tensor-core
-kernel (dh 64 or 128), and exits non-zero unless every verdict is as
-expected.  None of the faults can stall the kernel: the barriers still
-pair up.
+``chip_smoke.check_flash`` (its window cases among them) and every
+planted fault must fail it; for each copy the script prints the max |d|
+against the plain version at every bf16 case of
+``chip_smoke.FLASH_CASES`` and ``WINDOW_FLASH_CASES`` that reaches the
+tensor-core kernel (dh 64 or 128), and exits non-zero unless every
+verdict is as expected.  None of the faults can stall the kernel: the
+barriers still pair up (a block walks at least one KV tile, so a fault
+that shortens the walk keeps one).
 
 ``ablations``: the kernel and each copy that undoes one design choice
 are timed at the LM prefill's shape (BH = 4 * 36, S = 2,048, dh = 128,
@@ -66,8 +68,8 @@ ABLATIONS["heads side by side, expf and a division an output"] = [
 
 FAULTS = {
     "control (no fault)": [],
-    "diagonal tile skipped (every q tile but the first)": [
-        ("causal ? qt + 1 :", "causal ? max(qt, 1) :")],
+    "diagonal tile skipped (every q tile whose walk has another)": [
+        ("causal ? qt + 1 :", "causal ? max(qt, jlo + 1) :")],
     "rescale dropped for consumer warpgroup 1": [
         ("acc[i] *= alpha[(i >> 1) & 1];",
          "if (cw == 0) acc[i] *= alpha[(i >> 1) & 1];")],
@@ -75,6 +77,11 @@ FAULTS = {
         ("kdst = sk + stage * TILE, vdst = sv + stage * TILE",
          "kdst = sk + (stage + 1) % NS * TILE, "
          "vdst = sv + (stage + 1) % NS * TILE")],
+    "window's lower edge unmasked past a block's first KV tile": [
+        ("k0 + WG_BK > S || k0 < lower_edge,", "k0 + WG_BK > S,")],
+    "a wholly masked row's max taken into the fma (the NaN hazard)": [
+        ("mx[0] == NEG ? 0.f : mx[0] * LOG2E", "mx[0] * LOG2E"),
+        ("mx[1] == NEG ? 0.f : mx[1] * LOG2E", "mx[1] * LOG2E")],
 }
 
 
@@ -130,17 +137,19 @@ def faults(torch, chip_smoke, FA, fns) -> bool:
         use(fn)
         gen = torch.Generator(device="cuda").manual_seed(3)
         errs = []
-        for shape, dt, causal, cap, *_ in chip_smoke.FLASH_CASES:
+        cases = [(shape, dt, dict(causal=causal, softcap=cap))
+                 for shape, dt, causal, cap, *_ in chip_smoke.FLASH_CASES]
+        cases += [(shape, dt, dict(causal=True, softcap=cap, window=w))
+                  for shape, dt, w, cap, *_ in chip_smoke.WINDOW_FLASH_CASES]
+        for shape, dt, kw in cases:
             q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(
                 getattr(torch, dt)) for _ in range(3))
             if dt != "bfloat16" or shape[2] not in (64, 128):
                 continue
-            got = FA.flash_attention(q, k, v, causal=causal, softcap=cap)
-            want = FA.flash_attention_plain(q, k, v, causal=causal,
-                                            softcap=cap)
+            got = FA.flash_attention(q, k, v, **kw)
+            want = FA.flash_attention_plain(q, k, v, **kw)
             d = (got.double() - want.double()).abs().max()
-            errs.append(f"{tuple(shape)} causal={causal} softcap={cap}: "
-                        f"max |d| {float(d):.4g}")
+            errs.append(f"{tuple(shape)} {kw}: max |d| {float(d):.4g}")
         try:
             chip_smoke.check_flash(torch, types.SimpleNamespace(reps=3),
                                    flush, FA, 0)
