@@ -195,10 +195,29 @@ Phases (any failure exits non-zero):
       cores, then 32 causal), 31 decode steps whose cross-attention reads
       the raw source (the reference's ``serve_step`` does); the checks of
       phase 5 with its limits.
-   Each of the three warm prefills times its flash launches by CUDA
-   events around each (their sum and share of the prefill).
-   Then the kernel is timed at the slice's shapes beside its bound and
-   plain version: gemma2's global and windowed prefill attention beside
+   d. xlstm-125m at full width and depth (12 layers: 3 sLSTM, 9 mLSTM;
+      bf16): 4 prompts of 2,048 tokens and 31 decode steps, no kernel of
+      ours launched (no attention layer); times, peak memory, tokens in
+      range; a warm prefill split by CUDA events into the sLSTM loop and
+      the mLSTM chunks, and under torch.profiler into GEMMs and the rest;
+      then in float32 (the same weights) the prefill's last-position
+      logits against a token-by-token ``serve_step`` pass from the zero
+      state over the same 2,048 positions, max |d| within 1e-3.
+   e. jamba-v0.1-52b at full width, one unit of its pattern deep (8
+      layers: 7 Mamba, 1 attention, 4 MoE ffns of 16 experts, top-2;
+      13.26 B parameters, bf16): 4 prompts of 2,048 tokens, one flash
+      launch a prefill (causal, bf16, dh 128: the tensor cores) and 31
+      decode steps; times, peak memory, the MoE's dropped (token, expert)
+      pairs by layer, the warm prefill's split (Mamba, MoE, attention,
+      MLP; GEMMs); the launch against the plain version on its own q, k,
+      v (``BF16_REL``); the logits against the ``torch`` backend and the
+      plain version in the kernel's place by phase 5b's yardsticks, with
+      the tokens whose top-2 experts differ between the runs counted by
+      MoE layer; then the kernel timed at this shape beside SDPA.
+   Each warm prefill times its flash launches by CUDA events around each
+   (their sum and share of the prefill).
+   Between c and d the kernel is timed at 5b's and 5c's shapes beside
+   its bound and plain version: gemma2's global and windowed prefill attention beside
    ``flex_attention`` (compiled, with the softcap as its ``score_mod``
    and a causal or windowed block mask; SDPA causal without softcap
    stands beside it as a named yardstick of another function) and
@@ -212,6 +231,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -242,6 +262,22 @@ WIN_ARCH, WIN_BATCH, WIN_PROMPT, WIN_GEN = "gemma2-9b", 2, 7168, 32
 # size, its encoder over 1,500 frames; 4 prompts of 416 tokens and 32
 # greedy tokens: 448 positions, its published max_target_positions
 ENC_ARCH, ENC_BATCH, ENC_PROMPT, ENC_GEN = "whisper-large-v3", 4, 416, 32
+# recurrent mixers (phase 5d): xlstm-125m at full width and depth, 4
+# prompts of 2,048 tokens (32 chunks of 64; not the mLSTM head width of
+# 384, the axis the reference launcher's pad test would take for the
+# prompt's) and 32 greedy tokens
+SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_GEN = "xlstm-125m", 4, 2048, 32
+# its float32 check: the prefill's last-position logits against a
+# token-by-token serve_step pass from the zero state over the same
+# SSM_RECUR positions, max |d| at most SSM_RECUR_ATOL (logits of std
+# ~0.56; the chunked and the step forms add in other orders: 3.3e-5 on an
+# H100, PERF.md §6)
+SSM_RECUR, SSM_RECUR_ATOL = 2048, 1e-3
+# a hybrid with MoE ffns (phase 5e): jamba-v0.1-52b at full width, one
+# unit of its pattern deep (8 layers: 7 mamba, 1 attention, 4 MoE ffns;
+# 13.26 B parameters; the whole model's 95.8 GiB does not fit the card),
+# 4 prompts of 2,048 tokens and 32 greedy tokens
+HYB_ARCH, HYB_BATCH, HYB_PROMPT, HYB_GEN = "jamba-v0.1-52b", 4, 2048, 32
 L2_FLUSH_BYTES = 256 << 20
 HOST_LEAD_CYCLES = 500_000      # ~0.25 ms at the H100's 1.98 GHz
 DEV = "cuda"
@@ -916,23 +952,49 @@ def prefill_with(model, prompts, FA, attend, src=None):
         FA.flash_attention = real
 
 
-def init_count(cfg) -> int:
-    """The parameters the reference's ``init_params`` makes for an
-    attention + MLP arch.  ``ArchConfig.param_count`` leaves out the norm
-    scales (``ln``, gemma2's ``post_ln``, the final and encoder norms) and
-    counts an xattn gate projection that ``init_attn`` never makes."""
+def layer_count(cfg, spec) -> int:
+    """The parameters the reference's ``init_layer`` makes for one layer
+    (``repro/models/layers.py`` ``init_attn`` / ``init_mlp`` /
+    ``init_moe``, ``repro/models/ssm.py`` ``init_mamba`` / ``init_mlstm``
+    / ``init_slstm``), norm scales included."""
     D, H, kv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.dh
-    attn = 2 * D * H * dh + 2 * D * kv * dh + D
-    if cfg.qkv_bias:
-        attn += H * dh + 2 * kv * dh
-    if cfg.attn_softcap is not None:
-        attn += D
-    mlp = 3 * D * cfg.d_ff + D
+    m, f = spec["mixer"], spec["ffn"]
+    if m == "mamba":
+        E, N, K = cfg.mamba.expand * D, cfg.mamba.d_state, cfg.mamba.d_conv
+        # ln, in_proj, conv_w, conv_b, x_bc, x_dt, dt_bias, A_log, skip_d,
+        # out_proj
+        n = D + 2 * D * E + K * E + E + 2 * E * N + E + E + E * N + E + E * D
+    elif m == "mlstm":
+        E = 2 * D
+        n = D + 3 * D * E + 2 * D * H + D * E + E * D
+    elif m == "slstm":
+        n = D + 8 * D * D + 4 * D + D * D
+    else:
+        n = 2 * D * H * dh + 2 * D * kv * dh + D
+        if cfg.qkv_bias:
+            n += H * dh + 2 * kv * dh
+        if cfg.attn_softcap is not None:
+            n += D
+    if f == "mlp":
+        n += 3 * D * cfg.d_ff + D
+    elif f == "moe":
+        E = cfg.moe.n_experts
+        n += D + D * E + 3 * E * D * cfg.moe.d_ff
+    return n
+
+
+def init_count(cfg) -> int:
+    """The parameters the reference's ``init_params`` makes.
+    ``ArchConfig.param_count`` leaves out the norm scales (``ln``,
+    gemma2's ``post_ln``, the final and encoder norms) and Mamba's biases,
+    ``A_log`` and skip, and counts an xattn gate projection that
+    ``init_attn`` never makes."""
+    D = cfg.d_model
     total = cfg.vocab * D * (1 if cfg.tie_embeddings else 2) + D
-    total += cfg.repeat * sum(attn + (mlp if s["ffn"] == "mlp" else 0)
-                              for s in cfg.pattern)
+    total += cfg.repeat * sum(layer_count(cfg, s) for s in cfg.pattern)
     if cfg.enc_layers:
-        total += cfg.enc_layers * (attn + mlp) + D
+        total += cfg.enc_layers * layer_count(
+            cfg, {"mixer": "attn_bidir", "ffn": "mlp"}) + D
     return total
 
 
@@ -1110,15 +1172,24 @@ LM_YARD_MEAN, LM_YARD_MAX = 2.0, 3.0
 TORCH_REORDERED, PLAIN_REORDERED = 512, 256     # KV blocks of the yardsticks
 
 
-def build_lm(torch, arch: str, B: int, P: int, G: int):
+def build_lm(torch, arch: str, B: int, P: int, G: int, cfg=None):
     """``serve.build`` at full size, its parameters checked against the
-    reference's init."""
+    reference's init; given ``cfg`` (a cut of the arch), the model that
+    ``serve.build`` makes, of that config."""
     from repro_torch.launch import serve
+    from repro_torch.models.model import Model
     ns = serve.parser().parse_args(
         ["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
          "--gen", str(G), "--seed", "0"])
     with Timer(torch) as t_init:
-        model, prompts = serve.build(ns)
+        if cfg is None:
+            model, prompts = serve.build(ns)
+        else:
+            model = Model(cfg, device=DEV)
+            gen = torch.Generator(device=DEV).manual_seed(ns.seed)
+            model.init(gen)
+            prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen,
+                                    device=DEV)
     cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
     n_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
@@ -1205,13 +1276,16 @@ def serve_timed(torch, counts, FA, model, prompts, src, P, G, tag,
     return logits
 
 
-def layer_checks(torch, FA, model, prompts, src, tag) -> list:
+def layer_checks(torch, FA, model, prompts, src, tag, shapes=None) -> list:
     """Every flash launch of a prefill against the plain version on the
     same q, k, v (BF16_REL), beside the plain version over 64-key blocks
-    against the same; returns each launch's (causal, window)."""
+    against the same; returns each launch's (causal, window), and puts
+    each launch's (q's shape, dtype) into ``shapes`` if given."""
     layer_err, layer_ref, kinds = [], [], []
 
     def checked(q, k, v, **kw):
+        if shapes is not None:
+            shapes.append((tuple(q.shape), q.dtype))
         o = real(q, k, v, **kw)
         want = FA.flash_attention_plain(q, k, v, **kw)
         if not bool(torch.isfinite(o).all()):
@@ -1352,6 +1426,243 @@ def encoder_phase(torch, counts, FA) -> dict:
     del model, logits, plain, plain256, prompts, src
     torch.cuda.empty_cache()
     return {"encoder": cfg.enc_layers, "decoder": cfg.repeat}
+
+
+# Phases 5d and 5e: the recurrent mixers (xlstm-125m) and a hybrid of
+# Mamba, attention and MoE (one unit of jamba-v0.1-52b), each after 5c.
+# xlstm launches no kernel of ours (no attention layer), so its check is
+# the recurrence itself, in float32.  jamba's one flash launch a prefill
+# is held to the plain version by BF16_REL and its logits by phase 5b's
+# yardsticks.  A bf16 rounding at the attention layer can change a
+# token's top-2 experts in the MoE layers after it and so move that
+# sequence's logits far more than a rounding does: the phase counts such
+# tokens between each pair of runs (none on an H100 at this seed, PERF.md
+# §6), and a flip that broke a yardstick would fail the phase.
+# cuBLAS's kernels on Hopper, by name (nvjet: its JIT GEMMs)
+GEMM_KERNELS = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
+TENSOR_CORE_DH = (64, 128)     # the flash kernel's wgmma path: bf16 at these
+
+
+@contextlib.contextmanager
+def patched(mod, name, wrap):
+    """``mod.name`` replaced by ``wrap(real)`` inside the block."""
+    real = getattr(mod, name)
+    setattr(mod, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(mod, name, real)
+
+
+def prefill_split(torch, model, prompts, P, G, tag, parts) -> dict:
+    """A warm prefill with CUDA events around each call of ``parts``
+    (label -> (module, function name)), their summed spans, then the same
+    prefill under torch.profiler, its kernels only (operator rows would
+    take a minute to aggregate over the sLSTM loop's ~100k launches): the
+    device time of cuBLAS's GEMM kernels (``GEMM_KERNELS``, inside the
+    parts too), the busy share, and the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    spans = {label: [] for label in parts}
+
+    def timer(label):
+        def wrap(real):
+            def call(*a, **kw):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = real(*a, **kw)
+                ev[1].record()
+                spans[label].append(ev)
+                return out
+            return call
+        return wrap
+
+    with contextlib.ExitStack() as stack:
+        for label, (mod, name) in parts.items():
+            stack.enter_context(patched(mod, name, timer(label)))
+        with Timer(torch) as t_warm:
+            serve.prefill(model, prompts, P + G)
+    part_s = {label: sum(a.elapsed_time(b) for a, b in ev) / 1e3
+              for label, ev in spans.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve.prefill(model, prompts, P + G)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name, n = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+            n += 1
+    busy = sum(by_name.values()) / 1e9
+    is_gemm = lambda name: any(g in name.lower() for g in GEMM_KERNELS)
+    gemm = sum(ns for name, ns in by_name.items() if is_gemm(name)) / 1e9
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[{tag}] warm prefill split: {t_warm.s:.3f} s, "
+        + ", ".join(f"{label} {sec:.3f} s ({sec / t_warm.s:.1%}, "
+                    f"{len(spans[label])} calls)"
+                    for label, sec in part_s.items())
+        + f" (CUDA events) | under torch.profiler: wall {wall:.3f} s, "
+        f"device busy {busy:.3f} s ({busy / wall:.1%}), GEMMs "
+        f"{gemm:.3f} s ({gemm / max(busy, 1e-12):.1%} of busy), {n} "
+        f"device activities | top: "
+        + "; ".join(f"{ns / 1e6:.1f} ms{' GEMM' if is_gemm(name) else ''} "
+                    f"{name[:60]}" for name, ns in top))
+    return dict(warm_s=t_warm.s, parts_s=part_s, gemm_s=gemm, busy_s=busy,
+                profiled_wall_s=wall)
+
+
+def ssm_phase(torch, counts, FA) -> dict:
+    """xlstm-125m on the cuda backend: prefill, decode, the split of a warm
+    prefill into the sLSTM loop, the mLSTM chunks and the GEMMs, then in
+    float32 the prefill's last-position logits against a token-by-token
+    pass of the same recurrence from the zero state."""
+    from repro_torch.models import ssm, transformer
+    from repro_torch.models.model import Model
+    B, P, G = SSM_BATCH, SSM_PROMPT, SSM_GEN
+    model, prompts = build_lm(torch, SSM_ARCH, B, P, G)
+    cfg = model.cfg
+    serve_timed(torch, counts, FA, model, prompts, None, P, G, "xlstm", 0,
+                long_mode=False)
+    split = prefill_split(torch, model, prompts, P, G, "xlstm", {
+        "sLSTM loop": (ssm, "slstm_train"),
+        "mLSTM chunks": (ssm, "mlstm_train")})
+    f32 = Model(cfg, dtype=torch.float32, device=DEV)
+    f32.params = model.params.float()       # the bf16 model's, cast in place
+    del model
+    x = prompts[:, :SSM_RECUR]
+    counts.reset()
+    with Timer(torch) as t_pre:
+        want = f32.prefill_step(x)[0]
+    cache = transformer.init_cache(cfg, B, SSM_RECUR, torch.float32, DEV)
+    with Timer(torch) as t_steps:
+        for i in range(SSM_RECUR):
+            got, cache = f32.serve_step(cache, x[:, i:i + 1], i)
+    seen = counts.read()
+    require(seen, silent=list(seen))
+    d = (got - want).abs()
+    err, std = float(d.max()), float(want.std())
+    log(f"[xlstm] float32 recurrence over {SSM_RECUR} positions: prefill "
+        f"{t_pre.s:.3f} s against {SSM_RECUR} serve steps {t_steps.s:.3f} s "
+        f"from the zero state: last-position logits max |d| {err:.3e}, mean "
+        f"|d| {float(d.mean()):.3e} (logit std {std:.4f}; limit "
+        f"{SSM_RECUR_ATOL}), top-1 {int((got.argmax(-1) == want.argmax(-1)).sum())}"
+        f" of {B}")
+    if not err <= SSM_RECUR_ATOL:
+        raise AssertionError(f"[xlstm] the prefill and the step-by-step "
+                             f"recurrence differ by {err:.3e}")
+    del f32, cache, got, want, prompts, x
+    torch.cuda.empty_cache()
+    return dict(split, recur_max_abs=err, recur_std=std)
+
+
+def routes_into(recs):
+    """A wrap of ``layers.moe_route`` that keeps each call's token count
+    and its sorted (token, expert) pairs and keep flags."""
+    def wrap(real):
+        def call(router, xt, E, K, C):
+            r = real(router, xt, E, K, C)
+            recs.append((xt.shape[0], E, r.tok_s, r.eid_s, r.keep))
+            return r
+        return call
+    return wrap
+
+
+def expert_flips(a, b, T: int, layers: int) -> list:
+    """Per MoE layer, the tokens whose expert choice differs between two
+    runs' first prefills (the first ``layers`` calls over T tokens)."""
+    pick = lambda recs: [r for r in recs if r[0] == T][:layers]
+    flips = []
+    for (_, E, ta, ea, _), (_, _, tb, eb, _) in zip(pick(a), pick(b)):
+        chose = []
+        for tok, eid in ((ta, ea), (tb, eb)):
+            m = tok.new_zeros((T, E), dtype=bool)
+            m[tok, eid] = True
+            chose.append(m)
+        flips.append(int((chose[0] != chose[1]).any(1).sum()))
+    return flips
+
+
+def hybrid_phase(torch, args, counts, FA) -> dict:
+    """One unit of jamba-v0.1-52b at full width on the cuda backend: one
+    flash launch a prefill (tensor cores), Mamba and MoE layers; the
+    MoE's dropped pairs, the split of a warm prefill, the launch against
+    the plain version, the logits against the torch backend and the plain
+    version with the expert flips counted; then the flash kernel timed at
+    the prefill's shape (PERF.md row 7d)."""
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.models import layers, ssm
+    B, P, G = HYB_BATCH, HYB_PROMPT, HYB_GEN
+    full = get_arch(HYB_ARCH)
+    cfg = dataclasses.replace(full, repeat=1, n_layers=len(full.pattern))
+    model, prompts = build_lm(torch, HYB_ARCH, B, P, G, cfg=cfg)
+    n_attn = sum(s["mixer"] == "attn" for s in cfg.pattern)
+    n_moe = sum(s["ffn"] == "moe" for s in cfg.pattern)
+    T, K = B * P, cfg.moe.top_k
+    routes = {name: [] for name in ("cuda", "torch", "torch512", "plain",
+                                    "plain256")}
+    with patched(layers, "moe_route", routes_into(routes["cuda"])):
+        logits = serve_timed(torch, counts, FA, model, prompts, None, P, G,
+                             "jamba", n_attn, long_mode=False)
+    drops = [int((~r[4]).sum()) for r in routes["cuda"] if r[0] == T][:n_moe]
+    C = max(int(T * K / cfg.moe.n_experts * cfg.moe.capacity_factor), 8)
+    log(f"[jamba] MoE in the cold prefill: {T * K} (token, expert) pairs a "
+        f"layer, capacity {C} an expert; dropped by layer {drops}")
+    split = prefill_split(torch, model, prompts, P, G, "jamba", {
+        "mamba": (ssm, "mamba_train"), "MoE": (layers, "moe"),
+        "attention": (layers, "attention_full"), "MLP": (layers, "mlp")})
+    model.backend = "torch"
+    counts.reset()
+    with patched(layers, "moe_route", routes_into(routes["torch"])):
+        ref = model.prefill_step(prompts)[0]
+    with patched(layers, "KV_BLOCK", lambda real: TORCH_REORDERED), \
+            patched(layers, "moe_route", routes_into(routes["torch512"])):
+        ref512 = model.prefill_step(prompts)[0]
+    model.backend = "cuda"
+    require(counts.read(), silent=["flash_attention"])
+    shapes = []
+    kinds = layer_checks(torch, FA, model, prompts, None, "jamba", shapes)
+    H, dh = cfg.n_heads, cfg.dh
+    if kinds != [(True, None)] * n_attn or shapes != \
+            [((B * H, P, dh), torch.bfloat16)] * n_attn or \
+            dh not in TENSOR_CORE_DH:
+        raise AssertionError(f"[jamba] flash launches {kinds} of {shapes}, "
+                             f"expected {n_attn} causal bf16 ones at dh 64 "
+                             f"or 128 (the tensor-core path)")
+    counts.reset()
+    with patched(layers, "moe_route", routes_into(routes["plain"])):
+        plain = prefill_with(model, prompts, FA, FA.flash_attention_plain)
+    with patched(layers, "moe_route", routes_into(routes["plain256"])):
+        plain256 = prefill_with(model, prompts, FA, functools.partial(
+            FA.flash_attention_plain, bk=PLAIN_REORDERED))
+    require(counts.read(), silent=["flash_attention"])
+    flips = {name: expert_flips(routes[base], routes[name], T, n_moe)
+             for base, name in (("cuda", "torch"), ("torch", "torch512"),
+                                ("cuda", "plain"), ("plain", "plain256"))}
+    log(f"[jamba] tokens whose experts differ, by MoE layer: cuda vs torch "
+        f"{flips['torch']}, torch vs its {TORCH_REORDERED}-key reordering "
+        f"{flips['torch512']}, cuda vs plain {flips['plain']}, plain vs its "
+        f"{PLAIN_REORDERED}-key reordering {flips['plain256']} (of {T} "
+        f"tokens)")
+    logits_against("jamba", logits, ref, "torch", yard=ref512)
+    logits_against("jamba", logits, plain, "plain attention", yard=plain256)
+    del model, logits, ref, ref512, plain, plain256, prompts, routes
+    torch.cuda.empty_cache()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def sdpa_causal(q, k, v):
+        return sdpa(q[None], k[None], v[None], is_causal=True)[0]
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
+    BH = B * H
+    # 4 * dh * BH * the keys in reach of each row, on the bf16 tensor cores
+    rec = time_flash(torch, args, flush, FA, "jamba prefill", (BH, P, dh),
+                     dict(causal=True), 4 * dh * BH * P * (P + 1) // 2,
+                     n_attn, sdpa_causal)
+    rec.update(dropped=drops, expert_flips=flips, split=split)
+    return rec
 
 
 def time_flash(torch, args, flush, FA, name, shape, kw, flop, launches,
@@ -3136,6 +3447,10 @@ def main(argv=None) -> int:
     mark("whisper serving")
     kernels[-1]["shapes"] = slice_flash_shapes(torch, args, FA, win, enc)
     mark("flash at the slice's shapes")
+    ssm_phase(torch, counts, FA)
+    mark("xlstm serving")
+    kernels[-1]["shapes"].append(hybrid_phase(torch, args, counts, FA))
+    mark("jamba serving")
     log(f"[check] whole smoke {stamps[-1][1] - stamps[0][1]:.1f} s")
     log("[time] " + " | ".join(f"{b[0]} {b[1] - a[1]:.1f} s"
                                for a, b in zip(stamps, stamps[1:])))

@@ -1,5 +1,5 @@
 """Batched greedy decoding (counterpart of ``repro/launch/serve.py``): the
-serving-side end-to-end path of an attention + MLP language model.
+serving-side end-to-end path of a language model of any registered arch.
 
 PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
     --reduced --f32 --device cpu
@@ -7,7 +7,8 @@ PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \\
 Prefill runs the prompts through ``Model.prefill_step`` (the static full
 recomputation; its attention goes through the flash kernel on the
 ``cuda`` backend), then ``--gen`` greedy tokens come from
-``Model.serve_step`` over the cache, one token a step.  Weights and
+``Model.serve_step`` over the cache (the attention layers' k and v, the
+recurrent layers' states), one token a step.  Weights and
 prompts come from one ``torch.Generator`` seeded with ``--seed`` on the
 model's device.  A vlm or audio arch also gets the reference's source
 stand-in (``source``: ones of (B, image tokens or encoder frames, D)),
@@ -34,6 +35,7 @@ from repro_torch.configs.archs import REGISTRY, get_arch
 from repro_torch.configs.reduced import reduced
 from repro_torch.models.layers import BACKENDS
 from repro_torch.models.model import Model
+from repro_torch.models.transformer import layer_specs
 from repro_torch.tensors import resolve_device
 
 
@@ -68,11 +70,14 @@ def source(cfg, batch: int, device):
 
 
 def prefill(model: Model, prompts, total: int, src=None):
-    """Last-position logits and the cache padded to ``total`` positions."""
+    """Last-position logits and the cache, each attention layer's k and v
+    padded to ``total`` positions (a recurrent layer's state has no
+    position axis and stays as it is)."""
     logits, caches = model.prefill_step(prompts, src)
     pad = total - prompts.shape[1]
     caches = [{n: F.pad(x, (0, 0, 0, pad)) for n, x in c.items()}
-              for c in caches]
+              if spec["mixer"] in ("attn", "attn_local") else c
+              for c, spec in zip(caches, layer_specs(model.cfg))]
     return logits, caches
 
 

@@ -1,8 +1,7 @@
-"""Transformer layers for attention + MLP models (counterpart of
-``repro/models/layers.py``): norms, RoPE, GQA attention (flash for
-prefill, cache attention for decode, either windowed for local
-attention), cross-attention to a source's k and v, the SwiGLU MLP,
-parameter init.
+"""Transformer layers (counterpart of ``repro/models/layers.py``): norms,
+RoPE, GQA attention (flash for prefill, cache attention for decode,
+either windowed for local attention), cross-attention to a source's k
+and v, the SwiGLU MLP, the capacity-based top-k MoE, parameter init.
 
 Conventions as in the reference: activations (B, S, D); attention heads
 (B, S, H, dh); every sublayer is pre-norm residual; a sublayer's weights
@@ -20,8 +19,11 @@ argument is threaded through.
   (as the Pallas kernel is on the TPU), with a float32 accumulator.  On a
   CPU tensor the kernel's wrapper runs its plain version.
 
-``cache_attend``, ``cross_attention`` and the projections are plain
-tensor code; the reference computes them outside any kernel too.  Decode
+``cache_attend``, ``cross_attention``, the projections and the MoE are
+plain tensor code; the reference computes them outside any kernel too.
+The MoE is the reference's single-device ``gather`` dispatch (what it
+runs without a device mesh); its expert-parallel ``shard_map`` form
+waits for the sharding item (ROADMAP Queue 1 item 14f).  Decode
 writes the new token's k and v into the cache in place (the reference's
 ``dynamic_update_slice`` makes a new cache each step); with a window it
 reads only the window's slice of a longer cache, as the reference's
@@ -29,7 +31,7 @@ reads only the window's slice of a longer cache, as the reference's
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -263,6 +265,84 @@ def mlp(p, x):
     return h @ p["w_down"]
 
 
+class Route(NamedTuple):
+    """The MoE's dispatch of T tokens' top-K (token, expert) pairs, sorted
+    by expert (stably, so a token's pairs keep their top-k order within an
+    expert's group): ``order`` the sort's permutation of the (T * K,)
+    pairs, ``eid_s``/``tok_s``/``gate_s`` the sorted experts, tokens and
+    renormalised gates; ``keep`` marks a pair within its expert's
+    capacity C, ``slot`` its row of the (E * C) buffer (E * C when
+    dropped), ``tok_for_slot`` (E * C,) each row's token (T when empty)."""
+    order: torch.Tensor
+    eid_s: torch.Tensor
+    tok_s: torch.Tensor
+    gate_s: torch.Tensor
+    keep: torch.Tensor
+    slot: torch.Tensor
+    tok_for_slot: torch.Tensor
+
+
+def moe_route(router, xt, E: int, K: int, C: int) -> Route:
+    """Top-K routing of xt (T, D) over E experts of capacity C, as the
+    reference's ``moe`` routes: a float32 router (the activations cast up
+    to it, as jnp promotes them), softmax, the K best scores (ties to the
+    lower expert, as ``lax.top_k``) renormalised, a stable sort by expert,
+    each pair's rank in its expert's group (the group's start by a
+    left-side search) and the pairs of rank C or more dropped."""
+    T = xt.shape[0]
+    scores = torch.softmax(xt.to(F32) @ router, dim=-1)        # (T, E)
+    top_s, top_e = torch.sort(scores, dim=-1, descending=True, stable=True)
+    top_s, top_e = top_s[:, :K], top_e[:, :K]
+    top_s = top_s / top_s.sum(-1, keepdim=True)
+    eid = top_e.reshape(T * K)
+    order = torch.argsort(eid, stable=True)
+    eid_s = eid[order]
+    tok_s = torch.div(order, K, rounding_mode="floor")   # the pair's token
+    rank = torch.arange(T * K, device=xt.device) - \
+        torch.searchsorted(eid_s, eid_s, side="left")
+    keep = rank < C
+    slot = torch.where(keep, eid_s * C + rank, E * C)
+    tok_for_slot = torch.full((E * C + 1,), T, dtype=torch.int32,
+                              device=xt.device)
+    tok_for_slot[slot] = tok_s.to(torch.int32)    # every drop lands on E * C
+    return Route(order, eid_s, tok_s, top_s.reshape(T * K)[order], keep,
+                 slot, tok_for_slot[:E * C])
+
+
+def moe(p, x, cfg: ArchConfig):
+    """Capacity-based top-k MoE, the reference's single-device ``gather``
+    dispatch: each expert's rows gathered into a static (E, C, D) buffer
+    by ``tok_for_slot`` (overflowing pairs dropped), the SwiGLU experts as
+    batched products, and each token's kept outputs weighted by their
+    gates and added in ascending expert order (the order of the
+    reference's scatter-add over the sorted pairs) with no atomics."""
+    mc = cfg.moe
+    B, S, D = x.shape
+    T = B * S
+    E, K = mc.n_experts, mc.top_k
+    C = max(int(T * K / E * mc.capacity_factor), 8)
+    xt = x.reshape(T, D)
+    r = moe_route(p["router"], xt, E, K, C)
+    xe = torch.where((r.tok_for_slot < T)[:, None],
+                     xt[torch.clamp(r.tok_for_slot, max=T - 1)],
+                     torch.zeros((), dtype=x.dtype, device=x.device))
+    xe = xe.reshape(E, C, D)
+    g = torch.bmm(xe, p["w_gate"])
+    ye = torch.bmm(g * torch.sigmoid(g) * torch.bmm(xe, p["w_up"]),
+                   p["w_down"]).reshape(E * C, D)
+    contrib = ye[torch.clamp(r.slot, max=E * C - 1)] * \
+        (r.gate_s * r.keep).to(ye.dtype)[:, None]
+    # each token's K pairs by their place in the sorted list: ascending
+    # expert, since a token's K experts differ
+    where = torch.empty_like(r.order)
+    where[r.order] = torch.arange(T * K, device=x.device)
+    where = torch.sort(where.reshape(T, K), dim=1).values
+    y = contrib[where[:, 0]]
+    for k in range(1, K):
+        y = y + contrib[where[:, k]]
+    return y.reshape(B, S, D)
+
+
 # ---------------------------------------------------------------------------
 # Parameter init
 # ---------------------------------------------------------------------------
@@ -311,4 +391,16 @@ def init_mlp(cfg: ArchConfig, dtype, device, generator) -> nn.ParameterDict:
         "w_gate": _init((D, F), generator, device, dtype=dtype),
         "w_up": _init((D, F), generator, device, dtype=dtype),
         "w_down": _init((F, D), generator, device, dtype=dtype),
+    })
+
+
+def init_moe(cfg: ArchConfig, dtype, device, generator) -> nn.ParameterDict:
+    """The router is float32 in every model, as the reference's."""
+    D, E, F = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff
+    return nn.ParameterDict({
+        "ln": _zeros((D,), dtype, device),
+        "router": _init((D, E), generator, device, dtype=F32),
+        "w_gate": _init((E, D, F), generator, device, dtype=dtype),
+        "w_up": _init((E, D, F), generator, device, dtype=dtype),
+        "w_down": _init((E, F, D), generator, device, dtype=dtype),
     })

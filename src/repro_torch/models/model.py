@@ -1,8 +1,9 @@
 """Model facade (counterpart of ``repro/models/model.py``) for serving:
-``init``, ``prefill_step`` and ``serve_step`` of an attention + MLP
-language model on one device, with an encoder or cross-attention to a
-source (``src``: image-token or audio-frame embeddings, (B, T, D)) where
-the arch has them.
+``init``, ``prefill_step`` and ``serve_step`` of any registered arch's
+language model on one device: attention, recurrent (Mamba, mLSTM,
+sLSTM) or hybrid mixers, MLP or MoE ffns, with an encoder or
+cross-attention to a source (``src``: image-token or audio-frame
+embeddings, (B, T, D)) where the arch has them.
 
 The reference's step functions take the params pytree; here ``Model`` is
 an ``nn.Module`` that holds them (``init`` draws them from an explicit
@@ -73,7 +74,9 @@ class Model(nn.Module):
         """tokens: (B, P) int; src: (B, T, D) source embeddings, read by a
         vlm or audio arch (the encoder's input where it has one) ->
         (last-position logits (B, V) float32, the cache: one {"k", "v"} of
-        (B, kv, P, dh) per attention layer, {} per cross-attention one)."""
+        (B, kv, P, dh) per attention layer, the zero state per recurrent
+        one, as the reference's prefill leaves it, {} per cross-attention
+        one)."""
         cfg = self.cfg
         x = self._embed(tokens.to(self.device))
         src = self._src(src) if cfg.family in ("vlm", "audio") else None
@@ -105,7 +108,10 @@ def params_from_jax(cfg: ArchConfig, tree, dtype=None, device=None,
     """A ``Model`` holding the reference's ``init_params`` pytree ``tree``
     (numpy leaves; each unit position's leaves stacked over the repeat
     axis, as ``T.init_params`` stacks them).  ``dtype`` defaults to the
-    embedding's; bf16 leaves (ml_dtypes) pass through float32 exactly."""
+    embedding's; bf16 leaves (ml_dtypes) pass through float32 exactly.
+    Each leaf takes the dtype of the port's parameter, so Mamba's
+    ``A_log`` and the MoE's ``router`` stay float32 in a bf16 model, as
+    in the reference's tree."""
     host = lambda a: torch.from_numpy(np.array(a, dtype=np.float32))
     if dtype is None:
         dtype = torch.bfloat16 if np.asarray(tree["embed"]).dtype.name == \

@@ -1,6 +1,6 @@
-"""Backbone assembly (counterpart of ``repro/models/transformer.py``) for
-attention + MLP models: init, the encoder pass, the full-sequence pass
-(prefill) and the one-token pass (decode) over a KV cache.
+"""Backbone assembly (counterpart of ``repro/models/transformer.py``):
+init, the encoder pass, the full-sequence pass (prefill) and the
+one-token pass (decode) over a cache.
 
 The reference stacks each pattern position's weights over the repeat
 axis and ``lax.scan``s the unit; here the layers are an ``nn.ModuleList``
@@ -11,20 +11,25 @@ run by a Python loop, unit r's pattern position i at index
 
 Mixers: ``attn`` (causal), ``attn_local`` (causal within
 ``cfg.local_window`` keys), ``attn_bidir`` (the encoder's: not causal, no
-RoPE) and ``xattn`` (cross-attention to the source: the encoder's output
+RoPE), ``xattn`` (cross-attention to the source: the encoder's output
 in prefill; in decode the raw ``src``, as the reference's ``serve_step``
-passes it).  ``long_mode`` decode windows the global layers of an arch
-with an attention softcap too (the reference's long-context path).  An
-arch with ``enc_layers`` has an encoder of that many ``attn_bidir`` +
-``mlp`` layers (``Params.enc_layers``) and its final norm
-(``Params.enc_norm``).
+passes it), and the recurrent ``mamba``, ``mlstm`` and ``slstm``
+(``models/ssm.py``).  Ffns: ``mlp``, ``moe`` or ``none``.  ``long_mode``
+decode windows the global layers of an arch with an attention softcap
+too (the reference's long-context path).  An arch with ``enc_layers``
+has an encoder of that many ``attn_bidir`` + ``mlp`` layers
+(``Params.enc_layers``) and its final norm (``Params.enc_norm``).
 
-Cache (decode): a list with one entry per layer: ``{"k", "v"}`` of
-(B, kv, S, dh) for ``attn`` and ``attn_local``, ``{}`` for ``xattn`` and
-``attn_bidir``.
-
-The SSM mixers and the MoE ffn raise ``NotImplementedError`` naming the
-ROADMAP item they wait for.
+Cache (decode): a list with one entry per layer:
+  attn / attn_local : {"k", "v"}: (B, kv, S, dh)
+  mamba             : {"h": (B, E, N) float32, "conv": (B, d_conv-1, E)}
+  mlstm             : {"C": (B, H, dh, dh), "n": (B, H, dh)}, float32
+  slstm             : {"h": (B, D), "c": (B, D) float32}
+  xattn, attn_bidir : {}
+Prefill fills the attention entries and, as the reference does, leaves
+every recurrent mixer's entry at the zero state: decode after a prefill
+starts the SSM layers from zero, not from the prompt's final state
+(``repro/models/transformer.py``'s ``_mamba_final_state`` placeholder).
 """
 from __future__ import annotations
 
@@ -35,28 +40,20 @@ from torch import nn
 
 from repro_torch.configs.archs import ArchConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm
 
-WAITING = {
-    "moe": "mixture-of-experts layers (ROADMAP Queue 1 item 14c)",
-    "mamba": "the SSM mixers (ROADMAP Queue 1 item 14d)",
-    "mlstm": "the SSM mixers (ROADMAP Queue 1 item 14d)",
-    "slstm": "the SSM mixers (ROADMAP Queue 1 item 14d)",
-}
 ATTN = ("attn", "attn_local", "attn_bidir")
-MIXERS = ATTN + ("xattn",)
+SSM = ("mamba", "mlstm", "slstm")
+MIXERS = ATTN + ("xattn",) + SSM
+FFNS = ("mlp", "moe", "none")
 ENC_SPEC = {"mixer": "attn_bidir", "ffn": "mlp"}
 
 
 def check_spec(spec: dict) -> None:
-    """Raise unless the layer's mixer and ffn are ported."""
-    for part, ok in (("mixer", MIXERS), ("ffn", ("mlp", "none"))):
-        kind = spec[part]
-        if kind not in ok:
-            if kind in WAITING:
-                raise NotImplementedError(
-                    f"{part} {kind!r} is not ported yet: it waits for "
-                    f"{WAITING[kind]}")
-            raise ValueError(kind)
+    """Raise unless the layer's mixer and ffn are known kinds."""
+    for part, ok in (("mixer", MIXERS), ("ffn", FFNS)):
+        if spec[part] not in ok:
+            raise ValueError(f"unknown {part} {spec[part]!r}; one of {ok}")
 
 
 def layer_specs(cfg: ArchConfig) -> tuple:
@@ -87,9 +84,11 @@ class Params(nn.Module):
 def init_layer(spec: dict, cfg: ArchConfig, dtype, device,
                generator) -> nn.ModuleDict:
     check_spec(spec)
-    p = nn.ModuleDict({"mixer": L.init_attn(cfg, dtype, device, generator)})
-    if spec["ffn"] == "mlp":
-        p["ffn"] = L.init_mlp(cfg, dtype, device, generator)
+    m, f = spec["mixer"], spec["ffn"]
+    init = getattr(ssm, "init_" + m) if m in SSM else L.init_attn
+    p = nn.ModuleDict({"mixer": init(cfg, dtype, device, generator)})
+    if f != "none":
+        p["ffn"] = getattr(L, "init_" + f)(cfg, dtype, device, generator)
     return p
 
 
@@ -123,11 +122,13 @@ def init_params(cfg: ArchConfig, dtype=torch.bfloat16, device=None,
 # layer application
 # ---------------------------------------------------------------------------
 
-def _ffn(p, spec, x):
-    if spec["ffn"] == "mlp":
-        pf = p["ffn"]
-        x = x + L.mlp(pf, L.rms_norm(x, pf["ln"]))
-    return x
+def _ffn(p, spec, x, cfg: ArchConfig):
+    f = spec["ffn"]
+    if f == "none":
+        return x
+    pf = p["ffn"]
+    h = L.rms_norm(x, pf["ln"])
+    return x + (L.moe(pf, h, cfg) if f == "moe" else L.mlp(pf, h))
 
 
 def _cross(pm, x, cfg: ArchConfig, src):
@@ -156,9 +157,14 @@ def apply_layer_full(p, spec, x, cfg: ArchConfig, positions, backend: str,
         if "post_ln" in pm:
             att = L.rms_norm(att, pm["post_ln"])
         x = x + att
+    elif m in SSM:
+        x = x + getattr(ssm, m + "_train")(pm, L.rms_norm(x, pm["ln"]), cfg)
+        if collect_cache:              # the zero state, as the reference's
+            cache = getattr(ssm, m + "_init_state")(cfg, x.shape[0],
+                                                    x.dtype, x.device)
     else:                                                      # xattn
         x = _cross(pm, x, cfg, src)
-    return _ffn(p, spec, x), cache
+    return _ffn(p, spec, x, cfg), cache
 
 
 def apply_layer_decode(p, spec, x, cfg: ArchConfig, cache, pos: int,
@@ -177,7 +183,11 @@ def apply_layer_decode(p, spec, x, cfg: ArchConfig, cache, pos: int,
         cache = {"k": ck, "v": cv}
     elif m == "xattn":
         x = _cross(pm, x, cfg, src)
-    return _ffn(p, spec, x), cache
+    elif m in SSM:
+        y, cache = getattr(ssm, m + "_decode")(pm, L.rms_norm(x, pm["ln"]),
+                                               cache, cfg)
+        x = x + y
+    return _ffn(p, spec, x, cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +196,10 @@ def apply_layer_decode(p, spec, x, cfg: ArchConfig, cache, pos: int,
 
 def init_cache_entry(spec, cfg: ArchConfig, B, S, dtype, device):
     check_spec(spec)
-    if spec["mixer"] not in ("attn", "attn_local"):
+    m = spec["mixer"]
+    if m in SSM:
+        return getattr(ssm, m + "_init_state")(cfg, B, dtype, device)
+    if m not in ("attn", "attn_local"):
         return {}
     kv, dh = cfg.n_kv, cfg.dh
     return {"k": torch.zeros((B, kv, S, dh), dtype=dtype, device=device),

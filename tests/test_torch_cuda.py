@@ -775,6 +775,39 @@ def test_llama_vision_serve_on_card_matches_torch(dev):
     assert torch.equal(out["cuda"][1], out["torch"][1])
 
 
+@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba-v0.1-52b"])
+def test_recurrent_serve_on_card_matches_cpu_run(dev, arch):
+    """xlstm-125m and jamba-v0.1-52b reduced, float32: the same weights
+    served on the card (cuda backend: the SSM mixers, the MoE routing and
+    dispatch, jamba's flash launches) and on the CPU; prompts of 128 (two
+    64-position chunks): prefill logits within 1e-4, equal greedy
+    tokens, one flash launch per attention layer on the card."""
+    import copy
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.configs.reduced import reduced
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    cfg = reduced(get_arch(arch))
+    out = {}
+    host = Model(cfg, dtype=torch.float32, device="cpu")
+    host.init(torch.Generator().manual_seed(0))
+    card = Model(cfg, dtype=torch.float32, device=dev)
+    card.params = copy.deepcopy(host.params).to(dev)
+    prompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 128)))
+    n_attn = sum(s["mixer"] == "attn" for s in cfg.pattern) * cfg.repeat
+    for model in (host, card):
+        TF.reset_launches()
+        logits, caches = serve.prefill(model, prompts, 136)
+        assert TF.LAUNCHES["flash_attention"] == \
+            (n_attn if model is card else 0)
+        out[model.device.type] = (logits.cpu(), serve.decode(
+            model, logits, caches, 128, 8).cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0,
+                               atol=1e-4)
+    assert torch.equal(out["cuda"][1], out["cpu"][1])
+
+
 # ---------------------------------------------------------------------------
 # Triangle counting and the DSL sessions on the card
 # ---------------------------------------------------------------------------

@@ -180,23 +180,20 @@ def test_cuda_backend_on_cpu_runs_the_plain_kernel():
     assert TF.LAUNCHES == {"flash_attention": 0}
 
 
-SERVED = ("gemma2-9b", "granite-20b", "llama-3.2-vision-11b", "qwen1.5-32b",
-          "starcoder2-7b", "whisper-large-v3")
-
-
 @pytest.mark.parametrize("arch", sorted(REGISTRY))
 def test_layers_outside_the_slice_raise(arch):
-    """The attention archs build (causal, windowed, encoder and
-    cross-attention mixers; MLP ffns); every other mixer or ffn (MoE,
-    SSMs) raises, naming its ROADMAP item."""
+    """Every registered arch builds and initialises (reduced), its cache
+    too: every mixer and ffn kind is ported.  A kind outside them raises
+    ValueError, naming the kinds there are."""
     cfg = reduced(get_arch(arch))
-    if arch in SERVED:
-        Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
-        TT.init_params(cfg, device="cpu")
+    model = Model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    assert len(params.layers) == cfg.n_layers
+    assert len(TT.init_cache(cfg, 1, 4, device="cpu")) == cfg.n_layers
+    for part in ("mixer", "ffn"):
+        spec = dict(cfg.pattern[0], **{part: "unknown"})
+        with pytest.raises(ValueError, match=f"unknown {part}"):
+            TT.init_layer(spec, cfg, torch.float32, "cpu", None)
 
 
 def test_serve_cli_on_cpu():
