@@ -225,6 +225,34 @@ Phases (any failure exits non-zero):
    to the plain version as the kernel is; the records go under
    ``shapes`` in the flash kernel's JSON record.
 
+6. Training (``launch/train.py``'s step function on the ``cuda``
+   backend), after the LM phases.
+   a. starcoder2-7b at full width cut to 8 of its 32 layers (2.87 B
+      parameters, bf16, AdamW at ``TRAIN_LR``), 6 steps on
+      ``SyntheticSource`` batches of 4 x 2,048 tokens: first the ``torch`` backend's loss and grad norm
+      on step 0's weights and batch; then step 0 with every forward flash
+      launch (8, and 8 more recomputed under remat) held to the plain
+      version on its own q, k, v (``BF16_REL``, lse within 1e-2) and
+      every backward call (8) to the plain backward (``BWD_REL``); each
+      step launches ``flash_attention`` 16 times and
+      ``flash_attention_backward`` 8 times; step 0's loss and grad norm
+      within ``TRAIN_LOSS_RTOL`` / ``TRAIN_GNORM_RTOL`` of the ``torch``
+      backend's; the last step's loss below step 0's; step time (warm
+      median), its forward + backward and optimizer split (CUDA events),
+      tokens/s and peak memory; two backward launches on the same inputs
+      bit-identical.  The backward kernel is timed at this shape (BH 144,
+      S 2,048, dh 128) beside its bound, its plain version and SDPA's
+      backward (``is_causal``; its distance from the plain version
+      printed), and the forward with lse beside it without.
+   b. The reduced starcoder2 through ``launch/train.py`` on ``cuda``
+      (bf16, both kernels launched: the backward on the CUDA cores at dh
+      16): step 0 of the uninterrupted run with every forward launch held
+      to the plain version (``BF16_REL``, lse within 1e-2) and every
+      backward call to the plain backward (``BWD_REL``), as in 6a; a run
+      resumed from its step-3 checkpoint ends with parameters
+      bit-identical to an uninterrupted run's; ``--elastic --fail-at 3``
+      restarts and reaches step 5.
+
 The last two lines are the kernels' JSON record and the device record.
 """
 from __future__ import annotations
@@ -234,6 +262,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -278,6 +307,38 @@ SSM_RECUR, SSM_RECUR_ATOL = 2048, 1e-3
 # 13.26 B parameters; the whole model's 95.8 GiB does not fit the card),
 # 4 prompts of 2,048 tokens and 32 greedy tokens
 HYB_ARCH, HYB_BATCH, HYB_PROMPT, HYB_GEN = "jamba-v0.1-52b", 4, 2048, 32
+# training (phase 6a): starcoder2-7b at full width cut to 8 of its 32
+# layers (2.87 B parameters, bf16, AdamW), 6 steps on SyntheticSource
+# batches of 4 x 2,048 tokens (seed 0)
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = \
+    "starcoder2-7b", 8, 4, 2048, 6
+# AdamW's learning rate there: a thirtieth of the reference's default
+# 3e-4, as in the first steps of a warmup.  The reference has no warmup,
+# and Adam's first steps move every weight by about lr whatever its
+# gradient, so each output of a layer of fan-in 4,608 moves by up to
+# ~4,608 lr.  On an H100 (PERF.md §6, tools/train_lr_sweep.py) the
+# loss over 6 steps rose at 3e-4 (11.61 to 13.28, through 41.52) and
+# swung at 3e-5 (11.61, 17.81, ..., 15.36); it fell at 1e-5 (11.61 to
+# 9.90) and barely at 3e-6 (to 11.16).  The rise at 3e-4 is the
+# reference's own dynamics, not the kernels' or bf16's: a float32 copy
+# on the torch backend (no kernel) read 11.61, 20.87, 13.63 there, the
+# bf16 cuda run 11.61, 20.74, 13.64.  At 1e-5 a bf16 weight takes the
+# update only where it exceeds half an ulp, |w| below ~3.9e-3 (and
+# embedding rows of tokens outside the batch get none): steps 0 and 1
+# changed 23.3% and 15.3% of the parameter elements (92.5% and 89.5% at
+# 3e-4), so the loss's fall checks those updates and not the rest.  The
+# reference updates a bf16 parameter the same way (ROADMAP, limits).
+TRAIN_LR = 1e-5
+# step 0's loss and grad norm on cuda against the torch backend, the same
+# weights and batch.  The backends differ in attention only: the kernels
+# keep a float32 accumulator and differentiate by the hand-written
+# backward, the reference's chunked schedule keeps a bf16 accumulator and
+# goes through autograd.  Those roundings are unbiased and move each
+# layer's attention by a few 2^-9 of it; over 8 layers they move a mean of
+# 32,768 cross-entropies (~10.8 nats) by far less than TRAIN_LOSS_RTOL of
+# it, and the norm of 2.87 B gradients, most of them in the embedding,
+# head and MLPs, by far less than TRAIN_GNORM_RTOL.
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 2e-3, 2e-2
 L2_FLUSH_BYTES = 256 << 20
 HOST_LEAD_CYCLES = 500_000      # ~0.25 ms at the H100's 1.98 GHz
 DEV = "cuda"
@@ -1797,6 +1858,420 @@ def slice_flash_shapes(torch, args, FA, win: dict, enc: dict) -> list:
                    4 * w.dh * ENC_BATCH * w.n_heads * w.enc_seq ** 2,
                    enc["encoder"], sdpa_full),
     ]
+
+# The backward kernel against its plain version on the same q, k, v, o,
+# lse and do (phase 6a and tests/test_torch_cuda.py).  float32: within
+# BWD_F32 of each gradient's largest magnitude (the card's expf, another
+# summation order).  bf16: both versions round P and dS to bf16 from
+# float32 values whose last bits differ, so a term of a product may differ
+# by one bf16 ulp (at most 2^-7 of it) and the output by one more; and
+# dS = P (do.v - D) is a difference of two float32 sums of dh terms, whose
+# rounding (at most dh 2^-24 of their terms' magnitudes, dh <= 256) is all
+# that is left where they cancel (a window of one key leaves dS nothing
+# else).  So elementwise
+#     |got - want| <= 2^-6 (A + |want|) + 2^-16 A_t
+# with A the products over the magnitudes of their terms (|P|^T |do|,
+# |dS|^T |qs|, scale |dS| |k|) and A_t the same with |dS| in place of
+# P (|do|.|v| + |do|.|o|), the magnitudes of dS's terms; and normwise
+# ||got - want|| <= 1e-2 ||want|| + 2^-16 ||A_t|| (where dS cancels to
+# rounding everywhere, as with a window of one key, the gradient itself is
+# that rounding).
+BWD_REL = (2.0 ** -6, 2.0 ** -16, 1e-2)
+BWD_F32 = 2e-5
+
+
+def bwd_yard(q, k, v, o, lse, do, causal=True, softcap=None, window=None,
+             bk=512):
+    """(A, A_t) of BWD_REL for (dq, dk, dv), float32, blockwise over keys
+    as the plain backward."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    f32 = torch.float32
+    BH, S, dh = q.shape
+    scale = FA.rounded(dh ** -0.5, q.dtype)
+    qs = FA.scaled(q, dh ** -0.5).to(f32)
+    dof, of = do.to(f32), o.to(f32)
+    delta = (dof * of).sum(-1)
+    d_terms = (dof.abs() * of.abs()).sum(-1)
+    qa, da = qs.abs(), dof.abs()
+    A, At = ([torch.zeros((BH, S, dh), dtype=f32, device=q.device)
+              for _ in range(3)] for _ in range(2))
+    for k0 in range(0, S, bk):
+        kb, vb = k[:, k0:k0 + bk].to(f32), v[:, k0:k0 + bk].to(f32)
+        ok = FA._mask(S, k0, kb.shape[1], causal, window, q.device)
+        p, ds = FA._p_ds(qs, kb, vb, dof, lse, delta, softcap, ok)
+        p = p.to(v.dtype).to(f32).abs()
+        ds = ds.to(q.dtype).to(f32).abs()
+        terms = p * (da @ vb.abs().transpose(1, 2) + d_terms[..., None])
+        for out, d in ((A, ds), (At, terms)):
+            out[0] += (d @ kb.abs()) * scale
+            out[1][:, k0:k0 + bk] = d.transpose(1, 2) @ qa
+        A[2][:, k0:k0 + bk] = p.transpose(1, 2) @ da
+    return A, At
+
+
+def bwd_rel(FA, got, case, check=True, **kw) -> tuple:
+    """The backward kernel's (dq, dk, dv) on ``case`` = (q, k, v, o, lse,
+    do) against its plain version: (the largest share of the elementwise
+    limit, the largest normwise error, the max abs error); with ``check``
+    raises beyond BWD_F32 / BWD_REL."""
+    import torch
+    want = FA.flash_attention_backward_plain(*case, **kw)
+    bf16 = case[0].dtype != torch.float32
+    yard = bwd_yard(*case, **kw) if bf16 else None
+    share = norm = top_err = 0.0
+    for i, (name, g, w) in enumerate(zip(("dq", "dk", "dv"), got, want)):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{name}: {g.dtype} {tuple(g.shape)}, "
+                                 f"expected {w.dtype} {tuple(w.shape)}")
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name} is not finite")
+        d, w = (g.double() - w.double()).abs(), w.double()
+        top = float(w.abs().max())
+        if bf16:
+            c_a, c_t, c_n = BWD_REL
+            lim = c_a * (yard[0][i].double() + w.abs()) + \
+                c_t * yard[1][i].double()
+            r = float(torch.where(d == 0, 0.0, d / lim).max())
+            n = float(d.norm() / max(float(w.norm()), 1e-30))
+            n_lim = c_n * float(w.norm()) + \
+                c_t * float(yard[1][i].double().norm())
+            if check and not (r <= 1.0 and float(d.norm()) <= n_lim):
+                raise AssertionError(f"{name}: {r:.3f} of the elementwise "
+                                     f"limit, normwise {n:.3e}")
+        else:
+            r = float(d.max()) / (BWD_F32 * max(top, 1e-30))
+            n = float(d.norm() / max(float(w.norm()), 1e-30))
+            if check and not r <= 1.0:
+                raise AssertionError(f"{name}: max |d| {float(d.max()):.3e}"
+                                     f" beyond {BWD_F32} of {top:.3e}")
+        share, norm = max(share, r), max(norm, n)
+        top_err = max(top_err, float(d.max()))
+    return share, norm, top_err
+
+
+def checked_flash(FA, fwd_errs, bwd_errs, first=None):
+    """Stand-ins for ``FA.flash_attention`` and
+    ``FA.flash_attention_backward`` that launch the kernels and hold each
+    launch to the plain version on its own inputs: the forward by
+    BF16_REL and its lse within 1e-2, the backward by BWD_REL (bwd_rel).
+    Each appends its errors to its list; ``first`` keeps the first
+    backward call's inputs and outputs."""
+    real_f, real_b = FA.flash_attention, FA.flash_attention_backward
+
+    def fwd_checked(q, k, v, return_lse=False, **kw):
+        o, lse = real_f(q, k, v, return_lse=True, **kw)
+        want, want_lse = FA.flash_attention_plain(q, k, v, return_lse=True,
+                                                  **kw)
+        d_lse = float((lse - want_lse).abs().max())
+        if not d_lse <= 1e-2:
+            raise AssertionError(f"a forward's lse is {d_lse:.3e} from the "
+                                 f"plain version's, beyond 1e-2")
+        fwd_errs.append(bf16_rel(FA, o, want, q, k, v, **kw)[:2] + (d_lse,))
+        return (o, lse) if return_lse else o
+
+    def bwd_checked(q, k, v, o, lse, do, **kw):
+        got = real_b(q, k, v, o, lse, do, **kw)
+        bwd_errs.append(bwd_rel(FA, got, (q, k, v, o, lse, do), **kw))
+        if first is not None and not first:
+            first.update(case=tuple(t.clone() for t in (q, k, v, o, lse,
+                                                         do)),
+                         got=tuple(t.clone() for t in got), kw=kw)
+        return got
+
+    return fwd_checked, bwd_checked
+
+
+def train_model(torch, layers: int, lr=TRAIN_LR, dtype=None,
+                backend="cuda"):
+    """starcoder2-7b at full width cut to ``layers`` layers, bf16 unless
+    ``dtype`` says otherwise, AdamW at ``lr``, weights from a seeded
+    generator on the card (drawn in float32, then cast), as
+    ``launch/train.py``'s ``build`` makes the whole arch."""
+    from repro_torch.configs.archs import get_arch
+    from repro_torch.models.model import Model
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), repeat=layers,
+                              n_layers=layers)
+    model = Model(cfg, dtype=dtype or torch.bfloat16, device=DEV,
+                  backend=backend, lr=lr)
+    model.init(torch.Generator(device=DEV).manual_seed(0))
+    return cfg, model
+
+
+def train_phase(torch, args, counts, FA) -> dict:
+    """starcoder2-7b at full width cut to TRAIN_LAYERS layers, trained on
+    the cuda backend through ``launch/train.py``'s step function: step 0
+    with every flash launch held to the plain versions, the launches of a
+    step, the loss and grad norm against the torch backend, the loss
+    falling over TRAIN_STEPS steps, step time and its split, peak memory;
+    then the backward kernel timed at this shape beside its bound, its
+    plain version and SDPA's backward, and the forward with lse beside it
+    without."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    from repro_torch.launch import train
+    from repro_torch.optim.opt import global_norm
+    with Timer(torch) as t_init:
+        cfg, model = train_model(torch, TRAIN_LAYERS)
+    n_params = sum(p.numel() for p in model.parameters())
+    H, dh, L = cfg.n_heads, cfg.dh, cfg.n_layers
+    B, S, steps = TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS
+    log(f"[train] {cfg.name} cut to {L} layers: d_model {cfg.d_model}, "
+        f"{H} heads / {cfg.n_kv} kv, dh {dh}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab} | {n_params:,} parameters ({init_count(cfg):,} by the "
+        f"reference's init), {model.dtype}, {cfg.optimizer} | init "
+        f"{t_init.s:.2f} s")
+    if n_params != init_count(cfg) or model.backend != "cuda" or \
+            model.dtype != torch.bfloat16 or L != TRAIN_LAYERS:
+        raise AssertionError("the model is not starcoder2-7b's full width "
+                             "in bf16 on the cuda backend")
+    data = SyntheticSource(DataConfig(vocab=cfg.vocab, seq_len=S,
+                                      global_batch=B, seed=0))
+    batches = [data.batch(step) for step in range(steps)]
+
+    # the torch backend on step 0's weights and batch
+    b0 = {k: torch.from_numpy(v).to(DEV) for k, v in batches[0].items()}
+    model.backend = "torch"
+    counts.reset()
+    with Timer(torch) as t_ref:
+        ref_loss = float(model.loss_and_grad(b0))
+        ref_norm = float(global_norm([p.grad for p in model.parameters()]))
+    require(counts.read(), silent=["flash_attention",
+                                   "flash_attention_backward"])
+    for p in model.parameters():
+        p.grad = None
+    model.backend = "cuda"
+    del b0
+    torch.cuda.empty_cache()
+
+    # step 0 with every launch checked; each step split by CUDA events
+    fwd_errs, bwd_errs, first = [], [], {}
+    real_f, real_b = FA.flash_attention, FA.flash_attention_backward
+    fwd_checked, bwd_checked = checked_flash(FA, fwd_errs, bwd_errs, first)
+    marks = []
+    real_lg = model.loss_and_grad
+
+    def timed_loss_and_grad(batch):
+        loss = real_lg(batch)
+        marks[-1][1].record()
+        return loss
+
+    model.loss_and_grad = timed_loss_and_grad
+    state = model.init_opt()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, walls = [], [], []
+    counts.reset()
+    for step, batch in enumerate(batches):
+        marks.append([torch.cuda.Event(enable_timing=True)
+                      for _ in range(3)])
+        if step == 0:
+            FA.flash_attention, FA.flash_attention_backward = \
+                fwd_checked, bwd_checked
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            marks[-1][0].record()
+            state, metrics = train.step_fn(model, state, step, batch)
+            marks[-1][2].record()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        finally:
+            FA.flash_attention, FA.flash_attention_backward = real_f, real_b
+        losses.append(float(metrics["loss"]))
+        norms.append(float(metrics["grad_norm"]))
+        if step == 0:
+            WINDOWS["train step 0"] = step0 = counts.read()
+    WINDOWS["train steps"] = seen = counts.read()
+    del model.loss_and_grad
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want0 = {"flash_attention": 2 * L, "flash_attention_backward": L}
+    for name, n in want0.items():
+        if step0[name] != n or seen[name] != steps * n:
+            raise AssertionError(f"[train] {name}: {step0[name]} launches in "
+                                 f"step 0, {seen[name]} in {steps} steps; "
+                                 f"expected {n} a step ({L} layers, the "
+                                 f"forward once more under remat)")
+    require(seen, silent=[k for k in seen if k not in want0])
+    span = lambda errs, i: (min(e[i] for e in errs), max(e[i] for e in errs))
+    log(f"[train] step 0's {len(fwd_errs)} forward launches vs the plain "
+        f"version on their own q, k, v: at most {span(fwd_errs, 0)[1]:.3f} "
+        f"of BF16_REL's elementwise limit, normwise {span(fwd_errs, 1)}, lse"
+        f" max |d| {span(fwd_errs, 2)[1]:.3e} | its {len(bwd_errs)} backward "
+        f"calls vs the plain backward: at most {span(bwd_errs, 0)[1]:.3f} of"
+        f" BWD_REL's elementwise limit, normwise {span(bwd_errs, 1)} "
+        f"(limits {BWD_REL})")
+    d_loss = abs(losses[0] - ref_loss) / abs(ref_loss)
+    d_norm = abs(norms[0] - ref_norm) / abs(ref_norm)
+    log(f"[train] step 0 on cuda vs the torch backend ({t_ref.s:.2f} s): "
+        f"loss {losses[0]:.6f} vs {ref_loss:.6f} (rel {d_loss:.3e}, limit "
+        f"{TRAIN_LOSS_RTOL}), grad norm {norms[0]:.6f} vs {ref_norm:.6f} "
+        f"(rel {d_norm:.3e}, limit {TRAIN_GNORM_RTOL})")
+    if not (d_loss <= TRAIN_LOSS_RTOL and d_norm <= TRAIN_GNORM_RTOL):
+        raise AssertionError("[train] cuda and torch step 0 differ beyond "
+                             "their limits")
+    if not (losses[-1] < losses[0] and all(map(math.isfinite, losses))):
+        raise AssertionError(f"[train] the loss did not fall: {losses}")
+    warm = sorted(range(1, steps), key=lambda i: walls[i])
+    mid = warm[len(warm) // 2]
+    fb = marks[mid][0].elapsed_time(marks[mid][1]) / 1e3
+    opt = marks[mid][1].elapsed_time(marks[mid][2]) / 1e3
+    tok_s = B * S / walls[mid]
+    log(f"[train] {steps} steps: losses "
+        f"{[round(x, 4) for x in losses]}, grad norms "
+        f"{[round(x, 4) for x in norms]} | step (warm median of "
+        f"{steps - 1}) {walls[mid]:.3f} s ({tok_s:.0f} tok/s): forward + "
+        f"backward {fb:.3f} s, optimizer {opt:.3f} s (CUDA events) | step 0 "
+        f"{walls[0]:.3f} s with its checks | peak {peak:.2f} GiB")
+
+    # two launches on the same inputs, then the timings at this shape
+    case, kw = first["case"], first["kw"]
+    again = real_b(*case, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(again, first["got"])):
+        raise AssertionError("[train] two backward launches on the same "
+                             "inputs differ")
+    del model, state, again, batches
+    torch.cuda.empty_cache()
+    q, k, v, o, lse, do = case
+    BH = q.shape[0]
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=DEV)
+    # 5 products over the keys in reach of each row, on the tensor cores
+    flop = 5 * 2 * dh * BH * S * (S + 1) // 2
+    moved = nbytes(q, k, v, o, lse, do) + nbytes(q, k, v)
+    b_ms, b_by = bound(moved, flop, TENSOR_BF16_OPS_PER_S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qq, kk, vv = (t[None].detach().requires_grad_() for t in (q, k, v))
+    oo = sdpa(qq, kk, vv, is_causal=True)
+
+    def sdpa_backward():
+        return torch.autograd.grad(oo, (qq, kk, vv), do[None],
+                                   retain_graph=True)
+
+    # SDPA's backward starts from its own forward's o and lse, and rounds
+    # P and dS elsewhere: its distance from the plain version is printed,
+    # not held to BWD_REL
+    lib = [g[0] for g in sdpa_backward()]
+    lib_share = bwd_rel(FA, lib, case, check=False, **kw)
+    del lib
+    rec = dict(name="flash_attention_backward", route="cuda",
+               source="src/repro_torch/csrc/flash_attention_bwd.cu",
+               replaces="src/repro/models/layers.py:86",
+               replaces_note="no Pallas kernel: the reference's training "
+                             "step differentiates this chunked attention "
+                             "with XLA",
+               launches=seen["flash_attention_backward"],
+               max_abs_err=max(e[2] for e in bwd_errs),
+               ms=median_ms(torch, lambda: real_b(*case, **kw), args.reps,
+                            flush),
+               plain_ms=median_ms(torch, lambda: FA.
+                                  flash_attention_backward_plain(*case, **kw),
+                                  3, flush),
+               bound_ms=b_ms, bound_by=b_by,
+               library_ms=median_ms(torch, sdpa_backward, args.reps, flush),
+               library="scaled_dot_product_attention backward",
+               library_share_of_limit=lib_share[0],
+               library_normwise=lib_share[1],
+               shape=dict(BH=BH, S=S, dh=dh, dtype="bfloat16", causal=True))
+    del oo, qq, kk, vv
+    rec["library_ratio"] = rec["ms"] / rec["library_ms"]
+    rec["tflops"] = flop / rec["ms"] / 1e9
+    # the forward with lse (the training forward) beside it without, in
+    # turns
+    fw = {"without": [], "with": []}
+    for which in ("without", "with", "with", "without"):
+        fw[which].append(median_ms(torch, lambda: real_f(
+            q, k, v, return_lse=which == "with"), args.reps, flush))
+    rec["forward_ms"] = min(fw["without"])
+    rec["forward_lse_ms"] = min(fw["with"])
+    rec.update(step_s=walls[mid], tokens_per_s=tok_s, fwd_bwd_s=fb,
+               optimizer_s=opt, peak_gib=peak, losses=losses,
+               grad_norms=norms, torch_loss=ref_loss, torch_grad_norm=ref_norm)
+    log(f"[kernel] flash_attention_backward: {rec['ms']:.4f} ms (plain "
+        f"{rec['plain_ms']:.4f}, bound {b_ms:.4f} by {b_by}, SDPA backward "
+        f"{rec['library_ms']:.4f}, {rec['library_ratio']:.2f}x it, "
+        f"{rec['tflops']:.1f} TFLOP/s; SDPA's backward at "
+        f"{lib_share[0]:.3f} of BWD_REL's elementwise limit, normwise "
+        f"{lib_share[1]:.3e}) | forward {fw['without']} "
+        f"ms, with lse {fw['with']} ms | {rec['launches']} calls in "
+        f"{steps} steps | {rec['shape']}")
+    del case, first, q, k, v, o, lse, do, flush
+    torch.cuda.empty_cache()
+    return rec
+
+
+def reduced_train_phase(torch, counts, FA) -> None:
+    """The reduced starcoder2 trained on the cuda backend through
+    ``launch/train.py``: step 0 of an uninterrupted run with every flash
+    launch held to the plain versions (checked_flash), a run resumed from
+    its step-3 checkpoint ends with parameters bit-identical to the
+    uninterrupted run's, and ``--elastic --fail-at 3`` restarts from the
+    latest checkpoint and finishes."""
+    import shutil
+    import tempfile
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.launch import elastic, train
+    common = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "6", "--batch",
+              "4", "--seq", "64", "--log-every", "100"]
+    run = lambda *a: train.train(train.parser().parse_args(common + list(a)))
+    fwd_errs, bwd_errs = [], []
+    real_step = train.step_fn
+    real_f, real_b = FA.flash_attention, FA.flash_attention_backward
+
+    def checked_step(model, state, step, batch):
+        if step == 0:
+            FA.flash_attention, FA.flash_attention_backward = \
+                checked_flash(FA, fwd_errs, bwd_errs)
+        try:
+            return real_step(model, state, step, batch)
+        finally:
+            FA.flash_attention, FA.flash_attention_backward = real_f, real_b
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        counts.reset()
+        train.step_fn = checked_step
+        try:
+            with Timer(torch) as t:
+                full = run("--ckpt", os.path.join(d, "a"), "--ckpt-every",
+                           "3")
+        finally:
+            train.step_fn = real_step
+        WINDOWS["train reduced"] = seen = counts.read()
+        L = full["model"].cfg.n_layers
+        if len(fwd_errs) != 2 * L or len(bwd_errs) != L:
+            raise AssertionError(f"[train reduced] step 0 checked "
+                                 f"{len(fwd_errs)} forward and "
+                                 f"{len(bwd_errs)} backward calls; expected "
+                                 f"{2 * L} and {L}")
+        require(seen, ["flash_attention", "flash_attention_backward"])
+        run("--ckpt", os.path.join(d, "b"), "--ckpt-every", "3")
+        shutil.rmtree(os.path.join(d, "b", "step_00000006"))
+        resumed = run("--ckpt", os.path.join(d, "b"), "--ckpt-every", "100")
+        pairs = list(zip(ckpt._flatten(full["params"])[0],
+                         ckpt._flatten(resumed["params"])[0]))
+        if not pairs or not all(a.dtype == b.dtype and torch.equal(a, b)
+                                for a, b in pairs):
+            raise AssertionError("[train reduced] the resumed run's "
+                                 "parameters differ from the uninterrupted "
+                                 "run's")
+        args = train.parser().parse_args(
+            common + ["--steps", "5", "--ckpt", os.path.join(d, "c"),
+                      "--ckpt-every", "2", "--fail-at", "3"])
+        out = elastic.run_elastic(train.train, args)
+        last = ckpt.latest_step(os.path.join(d, "c"))
+        if last != 5 or not all(map(math.isfinite, out["losses"])):
+            raise AssertionError(f"[train reduced] the elastic run ended at "
+                                 f"step {last}")
+    log(f"[train reduced] {TRAIN_ARCH} reduced, bf16, B 4 x S 64 on cuda: 6 "
+        f"steps in {t.s:.2f} s (step 0 with its checks), launches "
+        f"{ {k: v for k, v in seen.items() if v} }; step 0's "
+        f"{len(fwd_errs)} forward launches at most "
+        f"{max(e[0] for e in fwd_errs):.3f} of BF16_REL's elementwise limit "
+        f"(normwise {max(e[1] for e in fwd_errs):.3e}, lse max |d| "
+        f"{max(e[2] for e in fwd_errs):.3e}), its {len(bwd_errs)} backward "
+        f"calls at most {max(e[0] for e in bwd_errs):.3f} of BWD_REL's "
+        f"(normwise {max(e[1] for e in bwd_errs):.3e}); resumed from step 3: "
+        f"{len(pairs)} parameter leaves bit-identical to the uninterrupted "
+        f"run; --elastic --fail-at 3 restarted and reached step {last}")
+
 
 # Triangle counting (phase 2d): the reference's TC family
 # (benchmarks/dynamic_vs_static.py: run_tc), a uniform graph with its
@@ -3451,6 +3926,12 @@ def main(argv=None) -> int:
     mark("xlstm serving")
     kernels[-1]["shapes"].append(hybrid_phase(torch, args, counts, FA))
     mark("jamba serving")
+
+    # -- 6. training ---------------------------------------------------------
+    kernels.append(train_phase(torch, args, counts, FA))
+    mark("training")
+    reduced_train_phase(torch, counts, FA)
+    mark("reduced training: resume, elastic")
     log(f"[check] whole smoke {stamps[-1][1] - stamps[0][1]:.1f} s")
     log("[time] " + " | ".join(f"{b[0]} {b[1] - a[1]:.1f} s"
                                for a, b in zip(stamps, stamps[1:])))

@@ -17,7 +17,15 @@ Fault-tolerance contract (DESIGN.md §5):
     resumes from the newest complete checkpoint;
   * leaves are numbered in JAX's pytree order (dict keys sorted,
     sequences in order), so ``leaf_i`` names the same leaf in both
-    packages.
+    packages;
+  * a leaf may be a numpy array or a tensor.  numpy has no bf16 here (no
+    ``ml_dtypes``), so a bf16 tensor is saved as its raw 16-bit patterns
+    (uint16) and the manifest's ``"dtypes"`` names it ``"bfloat16"``;
+    restore turns it back into a bf16 tensor.  A bf16 leaf that ``repro``
+    wrote (ml_dtypes' bfloat16, which reads back as 2-byte void without
+    ml_dtypes) is read the same way.  Other leaves are stored as they
+    are, so float32 checkpoints read in both packages; ``repro`` reads
+    the port's bf16 leaves as the integers they are stored as.
 """
 from __future__ import annotations
 
@@ -84,10 +92,36 @@ def _unflatten(structure, leaves: List[Any]):
     return leaves[structure]
 
 
+def _bf16(x) -> bool:
+    return hasattr(x, "detach") and str(x.dtype) == "torch.bfloat16"
+
+
 def _host(x) -> np.ndarray:
     if hasattr(x, "detach"):                  # a torch tensor
-        return x.detach().cpu().numpy()
+        import torch
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:         # its raw bits
+            return x.view(torch.int16).numpy().view(np.uint16)
+        return x.numpy()
     return np.asarray(x)
+
+
+def _leaf(arr: np.ndarray, ex, bf16: bool):
+    """A stored array as the example leaf ``ex`` holds it: a tensor of
+    ex's dtype for a tensor example, else a numpy array of ex's dtype;
+    ``bf16``: the array holds bf16 bit patterns."""
+    if bf16 or hasattr(ex, "detach"):
+        import torch
+        if bf16:
+            t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)
+                                 .copy()).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(np.array(arr))
+        if hasattr(ex, "detach"):
+            return t.to(ex.dtype)
+        return t.float().numpy().astype(ex.dtype) if hasattr(ex, "dtype") \
+            else t
+    return np.asarray(arr, dtype=getattr(ex, "dtype", None))
 
 
 def save(ckpt_dir, step: int, tree: Any, extra: Optional[dict] = None,
@@ -101,6 +135,7 @@ def save(ckpt_dir, step: int, tree: Any, extra: Optional[dict] = None,
 
     leaves, structure = _flatten(tree)
     arrays = {f"leaf_{i}": _host(x) for i, x in enumerate(leaves)}
+    dtypes = {str(i): "bfloat16" for i, x in enumerate(leaves) if _bf16(x)}
     with open(tmp / f"shard_{host_id}.npz", "wb") as f:
         np.savez(f, **arrays)
         f.flush()
@@ -112,6 +147,8 @@ def save(ckpt_dir, step: int, tree: Any, extra: Optional[dict] = None,
         "treedef": json.dumps(structure),
         "extra": extra or {},
     }
+    if dtypes:
+        manifest["dtypes"] = dtypes
     with open(tmp / "manifest.json", "w") as f:
         json.dump(manifest, f)
         f.flush()
@@ -179,8 +216,9 @@ def read_manifest(ckpt_dir, step: int) -> dict:
 def restore(ckpt_dir, step: int, example_tree: Any,
             host_id: int = 0) -> Tuple[Any, dict]:
     """Restore into the structure of ``example_tree``: every leaf comes
-    back as a numpy array of its example leaf's dtype; the caller places
-    it on a device."""
+    back on the host as its example leaf is (a tensor of its dtype, or a
+    numpy array of its dtype; a bf16 leaf as a bf16 tensor); the caller
+    places it on a device."""
     d = pathlib.Path(ckpt_dir) / f"step_{step:08d}"
     try:
         manifest = json.loads((d / "manifest.json").read_text())
@@ -210,5 +248,7 @@ def restore(ckpt_dir, step: int, example_tree: Any,
                 raise CheckpointCorrupt(
                     f"step {step} shard {host_id} is missing leaf_{i}",
                     path=d, step=step) from e
-            new.append(np.asarray(arr, dtype=getattr(ex, "dtype", None)))
+            bf16 = manifest.get("dtypes", {}).get(str(i)) == "bfloat16" or \
+                (arr.dtype.kind == "V" and arr.dtype.itemsize == 2)
+            new.append(_leaf(arr, ex, bf16))
     return _unflatten(structure, new), manifest["extra"]

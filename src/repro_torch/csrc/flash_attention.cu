@@ -29,7 +29,11 @@
 //   real max, multiplies l and acc by exactly 0; the kernels keep that
 //   result exactly (see softmax_tile and the CUDA-core loop).  A
 //   ragged S is masked at the edge (the TPU grid's S // bq leaves the tail
-//   unwritten; this kernel writes every row).
+//   unwritten; this kernel writes every row).  Given an ``lse`` pointer
+//   (the training forward), each row's float32 log-sum-exp m + log(l')
+//   (l' = max(l, 1e-20), the divisor) goes to lse[bh * S + row], what
+//   the backward (flash_attention_bwd.cu) recomputes P from; with a null
+//   pointer nothing else changes.
 //   Bound on this card, at the LM prefill of starcoder2-7b (BH = 4 * 36,
 //   S = 2048, dh = 128, bf16, causal): operations — the causal half of
 //   4 * S^2 * dh * BH = 1.55e11 FLOP at 989 TFLOP/s bf16 is 0.156 ms,
@@ -444,8 +448,9 @@ __global__ void __launch_bounds__(384, 1)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
-                       const __grid_constant__ CUtensorMap to, int S,
-                       int causal, int window, float scale, float softcap) {
+                       const __grid_constant__ CUtensorMap to,
+                       float* __restrict__ lse, int S, int causal, int window,
+                       float scale, float softcap) {
   constexpr int NB = DH / 64;            // 64-column boxes in a tile row
   constexpr int TILE = NB * BOX_BYTES;   // one 128-row tile of Q, K or V
   extern __shared__ uint8_t smem_raw[];
@@ -607,6 +612,10 @@ __global__ void __launch_bounds__(384, 1)
     // the consumer's 64 rows with TMA, which drops the rows past S
     const float den[2] = {fmaxf(l[0], 1e-20f), fmaxf(l[1], 1e-20f)};
     const float rd[2] = {1.f / den[0], 1.f / den[1]};
+    if (lse != nullptr && t == 0) {   // the quad's four threads share m, l
+      if (r0 < S) lse[(size_t)bh * S + r0] = m[0] + logf(den[0]);
+      if (r0 + 8 < S) lse[(size_t)bh * S + r0 + 8] = m[1] + logf(den[1]);
+    }
     uint8_t* const os = qs + cw * 64 * 128 + (warp * 16 + g) * 128 + 4 * t;
 #pragma unroll
     for (int n = 0; n < DH / 8; ++n) {
@@ -676,9 +685,9 @@ bool head_map(CUtensorMap* map, const void* x, int BH, int S, int dh,
 }
 
 template <int DH, int NS>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int BH,
-                 int S, int causal, int window, float scale, float softcap,
-                 cudaStream_t st) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int BH, int S, int causal, int window,
+                 float scale, float softcap, cudaStream_t st) {
   CUtensorMap tq, tk, tv, to;
   if (!head_map(&tq, q, BH, S, DH, WG_BQ) ||
       !head_map(&tk, k, BH, S, DH, WG_BK) ||
@@ -696,7 +705,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int BH,
   }
   const unsigned grid = (unsigned)BH * ((S + WG_BQ - 1) / WG_BQ);
   flash_wgmma_kernel<DH, NS><<<grid, 384, smem, st>>>(
-      tq, tk, tv, to, S, causal, window, scale, softcap);
+      tq, tk, tv, to, lse, S, causal, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -718,9 +727,9 @@ size_t simt_smem(int dh) {
 template <typename T, int DPL>
 __global__ void __launch_bounds__(128)
     flash_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, int S,
-                      int dh, int causal, int window, float scale,
-                      float softcap) {
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, int S, int dh, int causal,
+                      int window, float scale, float softcap) {
   extern __shared__ float smem[];
   float* qs = smem;                        // [BQ][dh], scaled and rounded
   float* ks = qs + SIMT_BQ * dh;           // [BK][dh + 1], padded
@@ -802,6 +811,8 @@ __global__ void __launch_bounds__(128)
     const int row = q0 + warp * SIMT_RPW + rr;
     if (row >= S) continue;
     const float den = fmaxf(l[rr], 1e-20f);
+    if (lse != nullptr && lane == 0)
+      lse[(size_t)bh * S + row] = m[rr] + logf(den);
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int d = lane + 32 * i;
@@ -811,9 +822,9 @@ __global__ void __launch_bounds__(128)
 }
 
 template <typename T, int DPL>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int BH,
-                int S, int dh, int causal, int window, float scale,
-                float softcap, cudaStream_t st) {
+int launch_simt(const void* q, const void* k, const void* v, void* o,
+                float* lse, int BH, int S, int dh, int causal, int window,
+                float scale, float softcap, cudaStream_t st) {
   const size_t smem = simt_smem(dh);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -823,54 +834,55 @@ int launch_simt(const void* q, const void* k, const void* v, void* o, int BH,
   }
   const dim3 grid(BH, (S + SIMT_BQ - 1) / SIMT_BQ);
   flash_simt_kernel<T, DPL><<<grid, 128, smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, S, dh, causal, window,
-      scale, softcap);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, S, dh, causal,
+      window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_simt(const void* q, const void* k, const void* v, void* o,
-                  int BH, int S, int dh, int causal, int window, float scale,
-                  float softcap, cudaStream_t st) {
+                  float* lse, int BH, int S, int dh, int causal, int window,
+                  float scale, float softcap, cudaStream_t st) {
   if (dh <= 32)
-    return launch_simt<T, 1>(q, k, v, o, BH, S, dh, causal, window, scale,
-                             softcap, st);
+    return launch_simt<T, 1>(q, k, v, o, lse, BH, S, dh, causal, window,
+                             scale, softcap, st);
   if (dh <= 64)
-    return launch_simt<T, 2>(q, k, v, o, BH, S, dh, causal, window, scale,
-                             softcap, st);
+    return launch_simt<T, 2>(q, k, v, o, lse, BH, S, dh, causal, window,
+                             scale, softcap, st);
   if (dh <= 128)
-    return launch_simt<T, 4>(q, k, v, o, BH, S, dh, causal, window, scale,
-                             softcap, st);
-  return launch_simt<T, 8>(q, k, v, o, BH, S, dh, causal, window, scale,
+    return launch_simt<T, 4>(q, k, v, o, lse, BH, S, dh, causal, window,
+                             scale, softcap, st);
+  return launch_simt<T, 8>(q, k, v, o, lse, BH, S, dh, causal, window, scale,
                            softcap, st);
 }
 
 }  // namespace
 
-// q, k, v, o: (BH, S, dh) contiguous, 16-byte aligned; is_bf16 selects
-// bf16 over float32; window > 0 masks keys window or more behind the row
-// (causal only), 0 means none; scale is dh^-0.5 already rounded to q's
-// type (the reference multiplies q by a weakly typed scalar); softcap <=
-// 0 means none.  dh <= 256, S <= 65535 * 16.
+// q, k, v, o: (BH, S, dh) contiguous, 16-byte aligned; lse: float32
+// (BH, S), or null for none; is_bf16 selects bf16 over float32; window > 0
+// masks keys window or more behind the row (causal only), 0 means none;
+// scale is dh^-0.5 already rounded to q's type (the reference multiplies q
+// by a weakly typed scalar); softcap <= 0 means none.  dh <= 256,
+// S <= 65535 * 16.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int BH, int S,
-                                     int dh, int is_bf16, int causal,
-                                     int window, float scale, float softcap,
-                                     void* stream) {
+                                     const void* v, void* o, float* lse,
+                                     int BH, int S, int dh, int is_bf16,
+                                     int causal, int window, float scale,
+                                     float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (BH <= 0 || S <= 0) return 0;
   if (dh <= 0 || dh > 256 || window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
   const int win = window > 0 ? window : INT_MAX;
   if (is_bf16 && dh == 128)
-    return launch_wgmma<128, 2>(q, k, v, o, BH, S, causal, win, scale,
+    return launch_wgmma<128, 2>(q, k, v, o, lse, BH, S, causal, win, scale,
                                 softcap, st);
   if (is_bf16 && dh == 64)
-    return launch_wgmma<64, 3>(q, k, v, o, BH, S, causal, win, scale,
+    return launch_wgmma<64, 3>(q, k, v, o, lse, BH, S, causal, win, scale,
                                softcap, st);
   if (is_bf16)
-    return dispatch_simt<bf16>(q, k, v, o, BH, S, dh, causal, win, scale,
-                               softcap, st);
-  return dispatch_simt<float>(q, k, v, o, BH, S, dh, causal, win, scale,
+    return dispatch_simt<bf16>(q, k, v, o, lse, BH, S, dh, causal, win,
+                               scale, softcap, st);
+  return dispatch_simt<float>(q, k, v, o, lse, BH, S, dh, causal, win, scale,
                               softcap, st);
 }

@@ -38,6 +38,7 @@ SOURCE_FLAGS = {
     "csr_relax.cu": ("--fmad=false",),
     "segment.cu": ("--fmad=false",),
     "flash_attention.cu": (),
+    "flash_attention_bwd.cu": (),
     "graph_cond.cu": (),
 }
 
@@ -100,9 +101,12 @@ _SIGNATURES = {
     "repro_relax_rowargmin": [P] * 5 + [I] * 4 + [P],
     # segment.cu — vals, order (or null), offsets, out, num, stream
     "repro_segment_sum_sorted": [P] * 4 + [I] + [P],
-    # flash_attention.cu — q, k, v, o, BH, S, dh, is_bf16, causal, window
-    # (0: none), scale, softcap, stream
-    "repro_flash_attention": [P] * 4 + [I] * 6 + [F] * 2 + [P],
+    # flash_attention.cu — q, k, v, o, lse (or null), BH, S, dh, is_bf16,
+    # causal, window (0: none), scale, softcap, stream
+    "repro_flash_attention": [P] * 5 + [I] * 6 + [F] * 2 + [P],
+    # flash_attention_bwd.cu — q, k, v, o, lse, do, dq, dk, dv, delta
+    # (scratch), BH, S, dh, is_bf16, causal, window, scale, softcap, stream
+    "repro_flash_attention_bwd": [P] * 10 + [I] * 6 + [F] * 2 + [P],
     # graph_cond.cu — the conditional nodes of core/device_loop.py:
     # stream, handle out
     "repro_cond_handle": [P, P],

@@ -1,4 +1,5 @@
-"""Flash-attention forward: the LM stack's prefill kernel.
+"""Flash attention, forward and backward: the LM stack's prefill kernel
+and, for training, its gradient.
 
 ``flash_attention(q, k, v, causal=..., softcap=..., window=...)`` takes
 q, k, v of shape (BH, S, dh), float32 or bf16, with the kv heads already
@@ -20,7 +21,29 @@ other case on the CUDA cores) or raises; only a tensor on the CPU takes
 the plain version, ``flash_attention_plain``: the same blockwise online
 softmax in PyTorch, with the same float32 state and cast points, over KV
 blocks of ``bk`` keys (the Pallas default, 512).  ``LAUNCHES`` counts
-kernel launches.
+kernel launches.  With ``return_lse=True`` both also give each row's
+float32 log-sum-exp ``m + log(l)`` over its (softcapped, masked) scores,
+(BH, S): what the backward recomputes the softmax from.
+
+``flash_attention_backward(q, k, v, o, lse, do, ...)`` returns dq, dk, dv
+of the forward's function: the reference has no Pallas backward, but its
+model differentiates this attention with XLA, and the port's training
+step needs the same gradient.  The math, in float32, per row i and key j
+(scores s_ij of the scaled q, P_ij = exp(softcap(s_ij) - lse_i), masked
+entries 0):
+    D_i   = sum_d do_id * o_id
+    dV_j  = sum_i round(P_ij) do_i            (P in v's type, as the forward)
+    dS_ij = P_ij (do_i . v_j - D_i) (1 - tanh^2(s_ij / cap) with a softcap)
+    dK_j  = sum_i round(dS_ij) qs_i           (qs: q * scale in q's type)
+    dQ_i  = scale * sum_j round(dS_ij) k_j
+with round() to q's type (a no-op in float32).  On a CUDA tensor it
+launches ``csrc/flash_attention_bwd.cu`` (three kernels in one call: D,
+then dK/dV over each KV tile, then dQ over each q tile; no atomics, so
+two calls on the same inputs agree bit for bit) or raises; a CPU tensor
+takes ``flash_attention_backward_plain``, the same math blockwise over
+keys.  ``BWD_LAUNCHES`` counts its calls.  ``FlashAttention`` is the
+``torch.autograd.Function`` over the two: its forward saves q, k, v, o
+and lse.
 """
 from __future__ import annotations
 
@@ -33,11 +56,14 @@ from repro_torch.kernels._build import stream as _stream
 NEG = -1e30
 BK = 512
 LAUNCHES = _build.launch_table(__name__, "flash_attention")
+BWD_LAUNCHES = _build.launch_table(__name__ + ".backward",
+                                   "flash_attention_backward")
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for table in (LAUNCHES, BWD_LAUNCHES):
+        for k in table:
+            table[k] = 0
 
 
 def rounded(value: float, dtype: torch.dtype) -> float:
@@ -63,11 +89,24 @@ def check_window(causal: bool, window) -> None:
         raise ValueError(f"window must be a positive int, got {window!r}")
 
 
+def _mask(S, k0, kn, causal, window, device):
+    """(S, kn) True where row i may see key k0 + j, or None (no mask)."""
+    if not causal:
+        return None
+    qi = torch.arange(S, device=device)
+    kj = torch.arange(k0, k0 + kn, device=device)
+    ok = qi[:, None] >= kj[None, :]
+    if window is not None:
+        ok &= qi[:, None] - kj[None, :] < window
+    return ok
+
+
 def flash_attention_plain(q, k, v, *, causal=True, softcap=None, window=None,
-                          bk=BK):
+                          bk=BK, return_lse=False):
     """The plain version: one pass per block of ``bk`` keys over every q
     row at once (causal blocks wholly in a row's future add exactly 0; so
-    do a window's blocks wholly behind a row, after its first real max)."""
+    do a window's blocks wholly behind a row, after its first real max).
+    ``return_lse``: also each row's log-sum-exp, float32 (BH, S)."""
     check_window(causal, window)
     BH, S, dh = q.shape
     f32 = torch.float32
@@ -75,17 +114,13 @@ def flash_attention_plain(q, k, v, *, causal=True, softcap=None, window=None,
     m = torch.full((BH, S), NEG, dtype=f32, device=q.device)
     l = torch.zeros((BH, S), dtype=f32, device=q.device)
     acc = torch.zeros((BH, S, dh), dtype=f32, device=q.device)
-    qi = torch.arange(S, device=q.device)
     for k0 in range(0, S, bk):
         kb = k[:, k0:k0 + bk].to(f32)
         s = qs @ kb.transpose(1, 2)
         if softcap is not None:
             s = torch.tanh(s / softcap) * softcap
-        if causal:
-            kj = torch.arange(k0, k0 + kb.shape[1], device=q.device)
-            ok = qi[:, None] >= kj[None, :]
-            if window is not None:
-                ok &= qi[:, None] - kj[None, :] < window
+        ok = _mask(S, k0, kb.shape[1], causal, window, q.device)
+        if ok is not None:
             s = torch.where(ok, s, NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
@@ -94,16 +129,14 @@ def flash_attention_plain(q, k, v, *, causal=True, softcap=None, window=None,
         acc = acc * alpha[..., None] + \
             p.to(v.dtype).to(f32) @ v[:, k0:k0 + bk].to(f32)
         m = m_new
-    return (acc / torch.clamp(l, min=1e-20)[..., None]).to(q.dtype)
+    den = torch.clamp(l, min=1e-20)
+    o = (acc / den[..., None]).to(q.dtype)
+    return (o, m + torch.log(den)) if return_lse else o
 
 
-def flash_attention(q, k, v, *, causal=True, softcap=None, window=None):
-    """(BH, S, dh) attention forward in q's type; see the module doc."""
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, softcap=softcap,
-                                     window=window)
-    check_window(causal, window)
-    name = "flash_attention"
+def _check_inputs(name, q, k, v, softcap):
+    """The device, dtype, shape, alignment and softcap the kernels take;
+    returns the device."""
     dev = cuda_device(name, q)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: q has dtype {q.dtype}, expected float32 "
@@ -122,14 +155,125 @@ def flash_attention(q, k, v, *, causal=True, softcap=None, window=None):
             raise ValueError(f"{name}: {arg} must be 16-byte aligned")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"{name}: softcap must be positive, got {softcap}")
+    return dev
+
+
+def flash_attention(q, k, v, *, causal=True, softcap=None, window=None,
+                    return_lse=False):
+    """(BH, S, dh) attention forward in q's type, and with ``return_lse``
+    each row's float32 log-sum-exp (BH, S); see the module doc."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, softcap=softcap,
+                                     window=window, return_lse=return_lse)
+    check_window(causal, window)
+    name = "flash_attention"
+    dev = _check_inputs(name, q, k, v, softcap)
+    BH, S, dh = q.shape
     o = torch.empty_like(q)
+    lse = torch.empty((BH, S), dtype=torch.float32, device=dev) \
+        if return_lse else None
     if q.numel() == 0:
-        return o
+        return (o, lse) if return_lse else o
     scale = rounded(dh ** -0.5, q.dtype)
     err = _build.load().repro_flash_attention(
-        ptr(q), ptr(k), ptr(v), ptr(o), BH, S, dh,
-        int(q.dtype == torch.bfloat16), int(causal), min(window or 0, S),
-        scale, float(softcap or 0.0), _stream(dev))
+        ptr(q), ptr(k), ptr(v), ptr(o), None if lse is None else ptr(lse),
+        BH, S, dh, int(q.dtype == torch.bfloat16), int(causal),
+        min(window or 0, S), scale, float(softcap or 0.0), _stream(dev))
     raise_on(err, name)
     LAUNCHES[name] += 1
-    return o
+    return (o, lse) if return_lse else o
+
+
+def flash_attention_backward_plain(q, k, v, o, lse, do, *, causal=True,
+                                   softcap=None, window=None, bk=BK):
+    """The backward's plain version: (dq, dk, dv) in q's type, one pass
+    per block of ``bk`` keys over every q row, float32 state, the casts of
+    the module doc."""
+    check_window(causal, window)
+    BH, S, dh = q.shape
+    f32 = torch.float32
+    scale = rounded(dh ** -0.5, q.dtype)
+    qs = scaled(q, dh ** -0.5).to(f32)
+    dof = do.to(f32)
+    delta = (dof * o.to(f32)).sum(-1)                        # D: (BH, S)
+    dq = torch.zeros((BH, S, dh), dtype=f32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for k0 in range(0, S, bk):
+        kb, vb = k[:, k0:k0 + bk].to(f32), v[:, k0:k0 + bk].to(f32)
+        p, ds = _p_ds(qs, kb, vb, dof, lse, delta, softcap,
+                      _mask(S, k0, kb.shape[1], causal, window, q.device))
+        p, ds = p.to(v.dtype).to(f32), ds.to(q.dtype).to(f32)
+        dv[:, k0:k0 + bk] = (p.transpose(1, 2) @ dof).to(v.dtype)
+        dk[:, k0:k0 + bk] = (ds.transpose(1, 2) @ qs).to(k.dtype)
+        dq += ds @ kb
+    return (dq * scale).to(q.dtype), dk, dv
+
+
+def _p_ds(qs, kb, vb, dof, lse, delta, softcap, ok):
+    """P and dS (float32) of one block of keys, 0 where ``ok`` is False."""
+    s = qs @ kb.transpose(1, 2)
+    if softcap is not None:
+        th = torch.tanh(s / softcap)
+        s = th * softcap
+    p = torch.exp(s - lse[..., None])
+    ds = p * (dof @ vb.transpose(1, 2) - delta[..., None])
+    if softcap is not None:
+        ds = ds * (1.0 - th * th)
+    if ok is not None:
+        p, ds = torch.where(ok, p, 0.0), torch.where(ok, ds, 0.0)
+    return p, ds
+
+
+def flash_attention_backward(q, k, v, o, lse, do, *, causal=True,
+                             softcap=None, window=None):
+    """(dq, dk, dv) of the forward at q, k, v given its output ``o``, its
+    ``lse`` and the output's gradient ``do``; see the module doc."""
+    if q.device.type == "cpu":
+        return flash_attention_backward_plain(
+            q, k, v, o, lse, do, causal=causal, softcap=softcap,
+            window=window)
+    check_window(causal, window)
+    name = "flash_attention_backward"
+    dev = _check_inputs(name, q, k, v, softcap)
+    _build.check(name, dev, o=(o, q.dtype), do=(do, q.dtype),
+                 lse=(lse, torch.float32))
+    BH, S, dh = q.shape
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (BH, S):
+        raise ValueError(f"{name}: o and do must be {tuple(q.shape)} and "
+                         f"lse {(BH, S)}, got {tuple(o.shape)}, "
+                         f"{tuple(do.shape)}, {tuple(lse.shape)}")
+    for arg, t in (("o", o), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must be 16-byte aligned")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((BH, S), dtype=torch.float32, device=dev)
+    err = _build.load().repro_flash_attention_bwd(
+        ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(do), ptr(dq), ptr(dk),
+        ptr(dv), ptr(delta), BH, S, dh, int(q.dtype == torch.bfloat16),
+        int(causal), min(window or 0, S), rounded(dh ** -0.5, q.dtype),
+        float(softcap or 0.0), _stream(dev))
+    raise_on(err, name)
+    BWD_LAUNCHES[name] += 1
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash forward with the hand-written backward as its gradient:
+    ``FlashAttention.apply(q, k, v, causal, softcap, window)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, softcap, window):
+        o, lse = flash_attention(q, k, v, causal=causal, softcap=softcap,
+                                 window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = dict(causal=causal, softcap=softcap, window=window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, lse,
+                                              do.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None

@@ -17,7 +17,13 @@ argument is threaded through.
 * ``"cuda"`` hands (B·H, S, dh) to the flash kernel
   (``kernels/flash_attention.py``), the lowering of the same function
   (as the Pallas kernel is on the TPU), with a float32 accumulator.  On a
-  CPU tensor the kernel's wrapper runs its plain version.
+  CPU tensor the kernel's wrapper runs its plain version.  Where autograd
+  records (training), it goes through ``FlashAttention``, whose backward
+  is the hand-written backward kernel; serving, under ``no_grad``, calls
+  the forward alone, as before.
+
+Parameters are trainable (``requires_grad``); serving runs under
+``torch.no_grad``.
 
 ``cache_attend``, ``cross_attention``, the projections and the MoE are
 plain tensor code; the reference computes them outside any kernel too.
@@ -153,9 +159,14 @@ def _flash_kernel(q, k, v, cfg: ArchConfig, causal, scale, window):
     if scale != dh ** -0.5:
         raise ValueError(f"the flash kernel scales q by dh**-0.5, "
                          f"got scale={scale}")
-    o = FK.flash_attention(to_heads(q), to_heads(k), to_heads(v),
-                           causal=causal, softcap=cfg.attn_softcap,
-                           window=window)
+    q, k, v = to_heads(q), to_heads(k), to_heads(v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        o = FK.FlashAttention.apply(q, k, v, causal, cfg.attn_softcap,
+                                    window)
+    else:
+        o = FK.flash_attention(q, k, v, causal=causal,
+                               softcap=cfg.attn_softcap, window=window)
     return o.reshape(B, H, S, dh).transpose(1, 2)
 
 
@@ -348,7 +359,7 @@ def moe(p, x, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)   # serving only
+    return nn.Parameter(t)
 
 
 def _init(shape, generator, device, scale=None, dtype=torch.bfloat16):

@@ -82,12 +82,10 @@ def _mamba_scan_chunk(h0, a, bu):
     float32, h0: (B, E, N).  Returns every h_t and the last."""
     T = a.shape[1]
     d = 1
-    while d < T:        # each round one fused pass into new buffers
-        nb, na = torch.empty_like(bu), torch.empty_like(a)
-        nb[:, :d], na[:, :d] = bu[:, :d], a[:, :d]
-        torch.addcmul(bu[:, d:], a[:, d:], bu[:, :-d], out=nb[:, d:])
-        torch.mul(a[:, d:], a[:, :-d], out=na[:, d:])
-        a, bu = na, nb
+    while d < T:        # each round one addcmul and one mul, no in-place
+        bu = torch.cat([bu[:, :d], torch.addcmul(bu[:, d:], a[:, d:],
+                                                 bu[:, :-d])], 1)
+        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], 1)
         d *= 2
     h = a * h0[:, None] + bu
     return h, h[:, -1]

@@ -30,13 +30,21 @@ Prefill fills the attention entries and, as the reference does, leaves
 every recurrent mixer's entry at the zero state: decode after a prefill
 starts the SSM layers from zero, not from the prompt's final state
 (``repro/models/transformer.py``'s ``_mamba_final_state`` placeholder).
+
+Training: ``backbone_full(..., use_remat=True)`` and ``encoder_pass(...,
+use_remat=True)`` run each unit of the pattern under
+``torch.utils.checkpoint`` (non-reentrant), as the reference wraps each
+scan body in ``jax.checkpoint``: a unit's activations are recomputed in
+the backward.  ``leaf_groups`` lists the parameters as the leaves of the
+reference's params tree (what the optimizers and the checkpoints walk).
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.archs import ArchConfig
 from repro_torch.models import layers as L
@@ -216,23 +224,54 @@ def init_cache(cfg: ArchConfig, B, S, dtype=torch.bfloat16,
 # backbone passes
 # ---------------------------------------------------------------------------
 
-def encoder_pass(cfg: ArchConfig, params: Params, src_embeds, backend: str):
+def _remat_units(layers, pattern, x, cfg: ArchConfig, positions,
+                 backend: str, src):
+    """x through ``layers``, one checkpointed unit of ``pattern`` at a
+    time (no cache)."""
+    n = len(pattern)
+
+    def unit(r):
+        def run(h):
+            for p, spec in zip(layers[r * n:(r + 1) * n], pattern):
+                h, _ = apply_layer_full(p, spec, h, cfg, positions, backend,
+                                        False, src)
+            return h
+        return run
+
+    for r in range(len(layers) // n):
+        x = checkpoint(unit(r), x, use_reentrant=False)
+    return x
+
+
+def encoder_pass(cfg: ArchConfig, params: Params, src_embeds, backend: str,
+                 use_remat: bool = False):
     """The encoder over the source embeddings (B, T, D): ``enc_layers``
     bidirectional attention + MLP layers, then ``enc_norm``."""
     positions = torch.arange(src_embeds.shape[1], device=src_embeds.device)
     x = src_embeds
-    for p in params.enc_layers:
-        x, _ = apply_layer_full(p, ENC_SPEC, x, cfg, positions, backend,
-                                False)
+    if use_remat:
+        x = _remat_units(params.enc_layers, (ENC_SPEC,), x, cfg, positions,
+                         backend, None)
+    else:
+        for p in params.enc_layers:
+            x, _ = apply_layer_full(p, ENC_SPEC, x, cfg, positions, backend,
+                                    False)
     return L.rms_norm(x, params.enc_norm)
 
 
 def backbone_full(cfg: ArchConfig, params: Params, x, backend: str,
-                  collect_cache: bool, src=None):
-    """Full-sequence pass (prefill). x: (B,S,D) embedded; ``src`` (B,T,D)
-    for the xattn layers."""
+                  collect_cache: bool, src=None, use_remat: bool = False):
+    """Full-sequence pass (prefill; training with ``use_remat``, which
+    collects no cache). x: (B,S,D) embedded; ``src`` (B,T,D) for the xattn
+    layers."""
     positions = torch.arange(x.shape[1], device=x.device)
     caches = []
+    if use_remat:
+        if collect_cache:
+            raise ValueError("a rematerialised pass collects no cache")
+        x = _remat_units(params.layers, cfg.pattern, x, cfg, positions,
+                         backend, src)
+        return L.rms_norm(x, params.final_norm), caches
     for p, spec in zip(params.layers, layer_specs(cfg)):
         x, c = apply_layer_full(p, spec, x, cfg, positions, backend,
                                 collect_cache, src)
@@ -248,3 +287,45 @@ def backbone_decode(cfg: ArchConfig, params: Params, x, cache, pos: int,
         x, nc = apply_layer_decode(p, spec, x, cfg, c, pos, src, long_mode)
         new_cache.append(nc)
     return L.rms_norm(x, params.final_norm), new_cache
+
+
+# ---------------------------------------------------------------------------
+# the reference's params tree
+# ---------------------------------------------------------------------------
+
+class Leaf(NamedTuple):
+    """One leaf of the reference's params tree: its path (a top-level key,
+    or ``(key, unit position, part, name)``), the port's tensors it holds
+    (each unit's, in repeat order) and whether the reference stacks them
+    over the repeat axis."""
+    path: tuple
+    tensors: list
+    stacked: bool
+
+
+def leaf_groups(cfg: ArchConfig, params: Params) -> List[Leaf]:
+    """The parameters as the leaves of the reference's ``init_params``
+    tree, in its flattening order (dict keys sorted, unit positions in
+    order)."""
+    top = {"embed": params.embed, "final_norm": params.final_norm}
+    if params.lm_head is not None:
+        top["lm_head"] = params.lm_head
+    stacks = {"units": (params.layers, cfg.pattern)}
+    if params.enc_layers is not None:
+        top["enc_norm"] = params.enc_norm
+        stacks["enc_units"] = (params.enc_layers, (ENC_SPEC,))
+    leaves = []
+    for key in sorted(set(top) | set(stacks)):
+        if key in top:
+            leaves.append(Leaf((key,), [top[key]], False))
+            continue
+        layers, pattern = stacks[key]
+        n = len(pattern)
+        for i in range(n):
+            for part in sorted(layers[i].keys()):
+                for name in sorted(layers[i][part].keys()):
+                    leaves.append(Leaf(
+                        (key, i, part, name),
+                        [layers[r * n + i][part][name]
+                         for r in range(len(layers) // n)], True))
+    return leaves

@@ -674,6 +674,122 @@ def test_flash_wrapper_refuses_bad_inputs(dev):
         TF.flash_attention(wide, wide, wide)
 
 
+# The backward kernel (csrc/flash_attention_bwd.cu) against its plain
+# version on the same q, k, v, o, lse and do, by chip_smoke.bwd_rel:
+# float32 within 2e-5 of each gradient's largest magnitude; bf16
+# elementwise within 2^-6 (A + |want|) + 2^-16 A_t (A: the same products
+# over the magnitudes of their terms; A_t with those of dS's terms) and
+# normwise within 1e-2 ||want|| + 2^-16 ||A_t|| (chip_smoke.BWD_REL says
+# why).
+
+def bwd_case(dev, bh, S, dh, dtype, seed, **kw):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((bh, S, dh)).astype(
+        np.float32)).to(dev, dtype) for _ in range(4))
+    o, lse = TF.flash_attention(q, k, v, return_lse=True, **kw)
+    return q, k, v, o, lse, do
+
+
+def bwd_close(case, got, **kw):
+    torch.cuda.synchronize()
+    chip_smoke.bwd_rel(TF, got, case, **kw)
+
+
+@pytest.mark.parametrize("dtype,dh,S,causal,window,cap", [
+    (dtype, dh, S, causal, None, cap) for dtype in (torch.float32,
+                                                    torch.bfloat16)
+    for dh in (64, 128, 256) for S in (200, 256) for causal in (True, False)
+    for cap in (None, 30.0)] + [
+    (torch.bfloat16, 96, 200, True, None, 50.0),     # off the tensor cores
+    (torch.bfloat16, 16, 130, True, None, None),
+    (torch.float32, 32, 200, True, 50, None),        # windows
+    (torch.bfloat16, 128, 700, True, 128, None),
+    (torch.bfloat16, 64, 300, True, 1, 30.0),
+    (torch.bfloat16, 256, 300, True, 127, 50.0),
+    (torch.bfloat16, 64, 1500, False, None, None),   # whisper's encoder
+    (torch.bfloat16, 128, 2048, True, None, None)])
+def test_flash_backward_matches_plain(dev, dtype, dh, S, causal, window, cap):
+    kw = dict(causal=causal, softcap=cap, window=window)
+    case = bwd_case(dev, 2, S, dh, dtype, S * dh + causal, **kw)
+    got = launched(TF.BWD_LAUNCHES, "flash_attention_backward",
+                   lambda: TF.flash_attention_backward(*case, **kw))
+    bwd_close(case, got, **kw)
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 128),
+                                      (torch.bfloat16, 64),
+                                      (torch.bfloat16, 256),
+                                      (torch.float32, 64)])
+def test_flash_backward_is_deterministic(dev, dtype, dh):
+    """Two launches on the same inputs agree bit for bit (no atomics)."""
+    kw = dict(causal=True, softcap=None, window=None)
+    case = bwd_case(dev, 3, 600, dh, dtype, dh, **kw)
+    a = TF.flash_attention_backward(*case, **kw)
+    b = TF.flash_attention_backward(*case, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("dtype,dh,S,causal,window,cap", [
+    (torch.bfloat16, 128, 2048, True, None, None),
+    (torch.bfloat16, 64, 200, False, None, None),
+    (torch.bfloat16, 256, 300, True, 127, 50.0),
+    (torch.float32, 128, 256, True, None, 30.0),
+    (torch.bfloat16, 128, 700, True, 128, None)])
+def test_flash_forward_lse_leaves_o_unchanged(dev, dtype, dh, S, causal,
+                                              window, cap):
+    """The forward with lse gives o bit for bit as without it, and an lse
+    within 1e-4 (bf16 1e-2: the tensor cores' exp2) of the plain
+    version's on the same inputs."""
+    rng = np.random.default_rng(dh + S)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, S, dh)).astype(
+        np.float32)).to(dev, dtype) for _ in range(3))
+    kw = dict(causal=causal, softcap=cap, window=window)
+    o, lse = TF.flash_attention(q, k, v, return_lse=True, **kw)
+    _, want = TF.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, TF.flash_attention(q, k, v, **kw))
+    assert lse.dtype == torch.float32 and lse.shape == (2, S)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    assert float((lse - want).abs().max()) < tol
+
+
+def test_flash_autograd_on_card_matches_cpu_run(dev):
+    """A layer's worth of training on the card (FlashAttention forward and
+    backward through the kernels) against the same on the CPU (the plain
+    versions), float32."""
+    rng = np.random.default_rng(7)
+    host = [torch.from_numpy(rng.standard_normal((2, 160, 64)).astype(
+        np.float32)) for _ in range(4)]
+    grads = []
+    for d in ("cpu", dev):
+        q, k, v = (t.to(d).detach().requires_grad_() for t in host[:3])
+        TF.reset_launches()
+        TF.FlashAttention.apply(q, k, v, True, 30.0, 100).backward(
+            host[3].to(d))
+        grads.append([t.grad.cpu() for t in (q, k, v)])
+        on_card = d != "cpu"
+        assert TF.LAUNCHES["flash_attention"] == int(on_card)
+        assert TF.BWD_LAUNCHES["flash_attention_backward"] == int(on_card)
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 2e-5 * float(b.abs().max())
+
+
+def test_flash_backward_refuses_bad_inputs(dev):
+    case = bwd_case(dev, 2, 64, 64, torch.bfloat16, 0)
+    q, k, v, o, lse, do = case
+    with pytest.raises(TypeError):
+        TF.flash_attention_backward(q, k, v, o, lse.double(), do)
+    with pytest.raises(ValueError):
+        TF.flash_attention_backward(q, k, v, o, lse[:1], do)
+    with pytest.raises(ValueError):
+        TF.flash_attention_backward(q, k, v, o, lse, do.cpu())
+    with pytest.raises(ValueError):
+        TF.flash_attention_backward(q, k, v, o, lse, do.transpose(1, 2)
+                                    .contiguous().transpose(1, 2))
+
+
 def test_lm_prefill_launches_flash_once_per_layer(dev):
     """starcoder2-7b at full width cut to 2 layers, bf16, on the card:
     prefill launches the flash kernel once per layer, decode never; the

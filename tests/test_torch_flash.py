@@ -105,7 +105,7 @@ def test_flash_plain_at_kernel_tile_ragged(dtype, tol, causal):
 # masks i - j >= W inside its causal branch, after the softcap.
 # ---------------------------------------------------------------------------
 
-def model_flash(jq, jk, jv, window, softcap):
+def model_flash(jq, jk, jv, window, softcap, causal=True):
     """repro's chunked attention on (BH, S, dh) inputs, as (1, S, BH, dh)."""
     import dataclasses
     from repro.configs.archs import get_arch
@@ -114,7 +114,7 @@ def model_flash(jq, jk, jv, window, softcap):
     heads = lambda x: jnp.swapaxes(x, 0, 1)[None]
     S, dh = jq.shape[1], jq.shape[2]
     o = RL.flash_attention(heads(jq), heads(jk), heads(jv), cfg,
-                           jnp.arange(S), True, window, scale=dh ** -0.5)
+                           jnp.arange(S), causal, window, scale=dh ** -0.5)
     return jnp.swapaxes(o[0], 0, 1)
 
 
@@ -187,3 +187,96 @@ def test_flash_variant_applies_to_the_current_source(table, name):
     subs = table[name]
     copy = FV.planted(FLASH_CU, subs)
     assert (copy != FLASH_CU) == bool(subs)
+
+
+# ---------------------------------------------------------------------------
+# the backward (training).  The reference has no Pallas backward: its model
+# differentiates the chunked attention above with XLA.  The plain backward
+# (what a CPU tensor takes, and what the card's kernel is held to) against
+# jax.vjp of that attention and against autograd of the plain forward, in
+# float32 within 1e-5 of each gradient's largest magnitude; the forward's
+# lse against jax's logsumexp of the same scores.
+# ---------------------------------------------------------------------------
+
+# S, dh, causal, window, softcap, the plain backward's key block: dh 16
+# and 64; S a multiple of the block and not (200, 300); full, causal,
+# windowed, softcapped
+BWD_CASES = [(128, 16, True, None, None, 64), (200, 64, True, None, None, 64),
+             (200, 16, False, None, None, 64),
+             (256, 64, True, None, 30.0, 128),
+             (200, 16, True, 50, None, 64), (300, 64, True, 100, 50.0, 128),
+             (96, 64, False, None, 30.0, 512)]
+
+
+def grad_err(got, want) -> float:
+    w = np.asarray(want, dtype=np.float32)
+    return err(got, want) / max(float(np.abs(w).max()), 1e-30)
+
+
+@pytest.mark.parametrize("S,dh,causal,window,cap,bk", BWD_CASES)
+def test_flash_backward_plain_matches_jax_grad(S, dh, causal, window, cap,
+                                               bk):
+    import jax
+    (jq, jk, jv), (q, k, v) = inputs(S + dh + 1, S, dh, "float32")
+    do = np.random.default_rng(S).standard_normal((2, S, dh)) \
+        .astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b, c: model_flash(a, b, c, window, cap,
+                                                 causal), jq, jk, jv)
+    want = vjp(jnp.asarray(do))
+    kw = dict(causal=causal, softcap=cap, window=window)
+    o, lse = TF.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    got = TF.flash_attention_backward_plain(q, k, v, o, lse,
+                                            torch.from_numpy(do), bk=bk,
+                                            **kw)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    TF.flash_attention_plain(*leaves, **kw).backward(torch.from_numpy(do))
+    for g, w, a in zip(got, want, leaves):
+        assert g.dtype == q.dtype and g.shape == q.shape
+        assert grad_err(g, w) < 1e-5
+        assert grad_err(g, a.grad.numpy()) < 1e-5
+
+
+@pytest.mark.parametrize("causal,window,cap", [(True, None, None),
+                                               (False, None, 30.0),
+                                               (True, 40, 50.0)])
+def test_flash_plain_lse_matches_logsumexp(causal, window, cap):
+    import jax
+    S, dh = 200, 32
+    (jq, jk, _), (q, k, v) = inputs(3, S, dh, "float32")
+    s = jnp.einsum("bsd,btd->bst", jq * dh ** -0.5, jk)
+    if cap is not None:
+        s = jnp.tanh(s / cap) * cap
+    if causal:
+        i, j = jnp.arange(S)[:, None], jnp.arange(S)[None, :]
+        ok = i >= j if window is None else (i >= j) & (i - j < window)
+        s = jnp.where(ok, s, -1e30)
+    want = jax.nn.logsumexp(s, axis=-1)
+    for bk in (64, 512):
+        o, lse = TF.flash_attention_plain(q, k, v, causal=causal,
+                                          softcap=cap, window=window, bk=bk,
+                                          return_lse=True)
+        assert lse.dtype == torch.float32 and lse.shape == (2, S)
+        assert err(lse, want) < 1e-5
+        assert torch.equal(o, TF.flash_attention_plain(
+            q, k, v, causal=causal, softcap=cap, window=window, bk=bk))
+
+
+def test_flash_autograd_function_on_cpu_runs_the_plain_versions():
+    """FlashAttention on CPU tensors: the plain forward, the plain
+    backward, no launch counted; bf16 gradients keep bf16."""
+    for dtype in ("float32", "bfloat16"):
+        (_, _, _), (q, k, v) = inputs(4, 96, 32, dtype)
+        do = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            (2, 96, 32)).astype(np.float32)).to(q.dtype)
+        TF.reset_launches()
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = TF.FlashAttention.apply(*leaves, True, 30.0, 40)
+        o.backward(do)
+        kw = dict(causal=True, softcap=30.0, window=40)
+        o2, lse = TF.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        assert torch.equal(o.detach(), o2)
+        for a, w in zip(leaves, TF.flash_attention_backward(
+                q, k, v, o2, lse, do, **kw)):
+            assert a.grad.dtype == q.dtype and torch.equal(a.grad, w)
+        assert TF.LAUNCHES == {"flash_attention": 0}
+        assert TF.BWD_LAUNCHES == {"flash_attention_backward": 0}
