@@ -179,8 +179,9 @@ Phases (any failure exits non-zero):
    b. gemma2-9b at full width and depth (42 layers, 21 local ones windowed
       to 4,096 keys, dh 256, softcaps 50 and 30; 9.24 B parameters,
       bf16): 2 prompts of 7,168 tokens, which must launch
-      ``flash_attention`` 42 times (windowed and global in turn, on the
-      CUDA cores), then 31 decode steps, then a warm prefill and 31
+      ``flash_attention`` 42 times (windowed and global in turn, each on
+      the tensor cores by the library's route count), then 31 decode
+      steps, then a warm prefill and 31
       ``long_mode`` decode steps (the global layers windowed too), none of
       which launches; times, peak memory, tokens in range.  Every launch
       against the plain version on its own q, k, v (``BF16_REL``); the
@@ -227,7 +228,11 @@ Phases (any failure exits non-zero):
 
 6. Training (``launch/train.py``'s step function on the ``cuda``
    backend), after the LM phases.
-   a. starcoder2-7b at full width cut to 8 of its 32 layers (2.87 B
+   a. First the backward kernel against its plain version at
+      ``BWD_FLASH_CASES`` (``bwd_rel``; the tensor cores at bf16 dh 64
+      and 128, the CUDA cores otherwise) and two launches at the training
+      shape bit-identical.  Then
+      starcoder2-7b at full width cut to 8 of its 32 layers (2.87 B
       parameters, bf16, AdamW at ``TRAIN_LR``), 6 steps on
       ``SyntheticSource`` batches of 4 x 2,048 tokens: first the ``torch`` backend's loss and grad norm
       on step 0's weights and batch; then step 0 with every forward flash
@@ -235,7 +240,8 @@ Phases (any failure exits non-zero):
       version on its own q, k, v (``BF16_REL``, lse within 1e-2) and
       every backward call (8) to the plain backward (``BWD_REL``); each
       step launches ``flash_attention`` 16 times and
-      ``flash_attention_backward`` 8 times; step 0's loss and grad norm
+      ``flash_attention_backward`` 8 times, all on the tensor cores (the
+      library's route count); step 0's loss and grad norm
       within ``TRAIN_LOSS_RTOL`` / ``TRAIN_GNORM_RTOL`` of the ``torch``
       backend's; the last step's loss below step 0's; step time (warm
       median), its forward + backward and optimizer split (CUDA events),
@@ -950,16 +956,20 @@ FLASH_CASES = [  # shape, dtype, causal, softcap, atol, rtol
 # softcap, atol, rtol.  W = 128 and 127 at S = 640 leave the last rows of
 # a 128-row q tile their whole first KV tile masked (the tensor-core
 # kernel's NaN hazard), W = 127 the same for the CUDA cores' 16-row tiles
-# of 32 keys; with W = 127 or 200 a q tile's lower edge spans two KV
-# tiles, and at W = 200 and S = 600 the q tile from row 384 has its second
-# lower-edge tile below the diagonal one (rows 384-511 need keys of tile
-# 2 masked); W >= S masks nothing more than causal does.
+# of 32 keys, and W = 63 and 64 for dh 256's 64-key tiles (rows 190-255
+# and 191-255 of the q tile from row 128 have all of keys 64-127 masked);
+# with W = 127 or 200 a q tile's lower edge spans two KV tiles, and at
+# W = 200 and S = 600 the q tile from row 384 has its second lower-edge
+# tile below the diagonal one (rows 384-511 need keys of tile 2 masked);
+# W >= S masks nothing more than causal does.
 WINDOW_FLASH_CASES = [
     ((2, 640, 128), "bfloat16", 128, None, 3e-2, 0.0),
     ((2, 600, 128), "bfloat16", 200, 30.0, 3e-2, 0.0),
     ((2, 300, 64), "bfloat16", 1, None, 3e-2, 0.0),
     ((2, 640, 64), "bfloat16", 127, None, 3e-2, 0.0),
     ((2, 300, 256), "bfloat16", 127, 50.0, 3e-2, 0.0),
+    ((2, 640, 256), "bfloat16", 63, None, 3e-2, 0.0),
+    ((2, 640, 256), "bfloat16", 64, 50.0, 3e-2, 0.0),
     ((2, 300, 128), "float32", 127, None, 2e-5, 0.0),
     ((2, 300, 256), "float32", 300, 30.0, 1e-5, 1e-4),
 ]
@@ -1404,6 +1414,17 @@ def logits_against(tag, logits, ref, what, yard=None, plain_mean=False):
                              f"beyond their limits")
 
 
+def on_tensor_cores(FA, name: str, n: int, tag: str) -> None:
+    """Raises unless the library ran ``name``'s last ``n`` launches (since
+    FA.reset_launches) all on the tensor cores, by its own route count."""
+    seen = FA.ROUTES[name]
+    if seen != {"tensor_cores": n, "cuda_cores": 0}:
+        raise AssertionError(f"[{tag}] {name} launches by route {seen}, "
+                             f"expected all {n} on the tensor cores")
+    log(f"[{tag}] {name}: all {n} launches on the tensor cores (the "
+        f"library's route count)")
+
+
 def window_phase(torch, counts, FA) -> dict:
     """gemma2-9b on the cuda backend: 42 flash launches a prefill (21
     windowed, 21 global), decode and long_mode decode, checked against
@@ -1429,11 +1450,13 @@ def window_phase(torch, counts, FA) -> dict:
     log(f"[gemma2] torch backend prefill {t_ref.s:.3f} s")
     logits_against("gemma2", logits, ref, "torch", yard=ref512)
     del ref, ref512
+    FA.reset_launches()
     kinds = layer_checks(torch, FA, model, prompts, None, "gemma2")
     want = [(True, cfg.local_window), (True, None)] * cfg.repeat
     if kinds != want:
         raise AssertionError(f"[gemma2] flash launches {kinds}, expected "
                              f"{cfg.repeat} windowed and global in turn")
+    on_tensor_cores(FA, "flash_attention", len(want), "gemma2")
     counts.reset()
     plain = prefill_with(model, prompts, FA, FA.flash_attention_plain)
     plain256 = prefill_with(model, prompts, FA, functools.partial(
@@ -1501,7 +1524,7 @@ def encoder_phase(torch, counts, FA) -> dict:
 # §6), and a flip that broke a yardstick would fail the phase.
 # cuBLAS's kernels on Hopper, by name (nvjet: its JIT GEMMs)
 GEMM_KERNELS = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
-TENSOR_CORE_DH = (64, 128)     # the flash kernel's wgmma path: bf16 at these
+TENSOR_CORE_DH = (64, 128, 256)  # the flash kernel's wgmma path: bf16 at these
 
 
 @contextlib.contextmanager
@@ -1821,7 +1844,7 @@ def flex_softcap(torch, S: int, dh: int, cap: float, window=None):
 
 def slice_flash_shapes(torch, args, FA, win: dict, enc: dict) -> list:
     """The flash kernel at gemma2's prefill (global and windowed: BH 32,
-    S 7,168, dh 256, softcap 50, on the CUDA cores) and whisper's encoder
+    S 7,168, dh 256, softcap 50, on the tensor cores) and whisper's encoder
     (BH 80, S 1,500, dh 64, not causal, on the tensor cores), each beside
     the one PyTorch call computing the same function: flex_attention with
     the softcap and the (windowed) causal mask for gemma2, SDPA for
@@ -1950,6 +1973,65 @@ def bwd_rel(FA, got, case, check=True, **kw) -> tuple:
     return share, norm, top_err
 
 
+# the backward kernel against its plain version (bwd_rel) on its own
+# inputs: shape, dtype, causal, window, softcap.  The tensor cores (bf16,
+# dh 64 and 128) at one and two tiles, ragged S, softcaps of 30 and of 2
+# (at 2 the factor 1 - tanh^2 moves dS by ~20%: a dS without it fails;
+# at 30 by ~0.1%, inside BWD_REL), a window of one key (dS is rounding
+# only) and of 128 and 200 (tiles at the window's lower edge), whisper's
+# encoder and the training shape of phase 6a; the CUDA cores at bf16 dh
+# 96 and float32.  Two launches at BWD_TRAIN_SHAPE must agree bit for bit.
+BWD_TRAIN_SHAPE = (TRAIN_BATCH * 36, TRAIN_SEQ, 128)
+BWD_FLASH_CASES = [
+    ((2, 256, 128), "bfloat16", True, None, None),
+    ((2, 200, 128), "bfloat16", False, None, 30.0),
+    ((2, 256, 64), "bfloat16", True, None, 30.0),
+    ((2, 256, 128), "bfloat16", True, None, 2.0),
+    ((2, 200, 64), "bfloat16", False, None, 2.0),
+    ((2, 300, 64), "bfloat16", True, 1, 30.0),
+    ((2, 700, 128), "bfloat16", True, 128, None),
+    ((3, 600, 128), "bfloat16", True, 200, 50.0),
+    ((2, 1500, 64), "bfloat16", False, None, None),
+    (BWD_TRAIN_SHAPE, "bfloat16", True, None, None),
+    ((2, 200, 96), "bfloat16", True, None, 50.0),
+    ((2, 256, 128), "float32", True, None, 30.0),
+]
+
+
+def check_flash_bwd(torch, FA) -> list:
+    """The backward kernel against its plain version at BWD_FLASH_CASES
+    (each from the forward kernel's o and lse on the same q, k, v), and two
+    launches at BWD_TRAIN_SHAPE bit-identical; a line for each case."""
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    lines = []
+    for shape, dt, causal, window, cap in BWD_FLASH_CASES:
+        q, k, v, do = (torch.randn(shape, generator=gen, device=DEV).to(
+            getattr(torch, dt)) for _ in range(4))
+        kw = dict(causal=causal, softcap=cap, window=window)
+        o, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+        got = FA.flash_attention_backward(q, k, v, o, lse, do, **kw)
+        torch.cuda.synchronize()
+        try:
+            share, norm, err = bwd_rel(FA, got, (q, k, v, o, lse, do), **kw)
+        except AssertionError as exc:
+            raise AssertionError(f"flash_attention_backward {shape} {dt} "
+                                 f"{kw}: {exc}") from None
+        lines.append(f"{shape} {dt} {kw}: {share:.3f} of the elementwise "
+                     f"limit, normwise {norm:.3e}, max abs err {err:.3e}")
+        log(f"[flash bwd] {lines[-1]}")
+    q, k, v, do = (torch.randn(BWD_TRAIN_SHAPE, generator=gen,
+                               device=DEV).bfloat16() for _ in range(4))
+    o, lse = FA.flash_attention(q, k, v, return_lse=True)
+    a = FA.flash_attention_backward(q, k, v, o, lse, do)
+    again = FA.flash_attention_backward(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(a, again)):
+        raise AssertionError("flash_attention_backward: two launches on the "
+                             "same inputs differ")
+    log("[flash bwd] two launches at the training shape bit-identical")
+    return lines
+
+
 def checked_flash(FA, fwd_errs, bwd_errs, first=None):
     """Stand-ins for ``FA.flash_attention`` and
     ``FA.flash_attention_backward`` that launch the kernels and hold each
@@ -2010,6 +2092,8 @@ def train_phase(torch, args, counts, FA) -> dict:
     from repro_torch.data.pipeline import DataConfig, SyntheticSource
     from repro_torch.launch import train
     from repro_torch.optim.opt import global_norm
+    bwd_cases = check_flash_bwd(torch, FA)
+    torch.cuda.empty_cache()
     with Timer(torch) as t_init:
         cfg, model = train_model(torch, TRAIN_LAYERS)
     n_params = sum(p.numel() for p in model.parameters())
@@ -2060,6 +2144,7 @@ def train_phase(torch, args, counts, FA) -> dict:
     torch.cuda.reset_peak_memory_stats()
     losses, norms, walls = [], [], []
     counts.reset()
+    FA.reset_launches()
     for step, batch in enumerate(batches):
         marks.append([torch.cuda.Event(enable_timing=True)
                       for _ in range(3)])
@@ -2091,6 +2176,8 @@ def train_phase(torch, args, counts, FA) -> dict:
                                  f"expected {n} a step ({L} layers, the "
                                  f"forward once more under remat)")
     require(seen, silent=[k for k in seen if k not in want0])
+    for name, n in want0.items():
+        on_tensor_cores(FA, name, steps * n, "train")
     span = lambda errs, i: (min(e[i] for e in errs), max(e[i] for e in errs))
     log(f"[train] step 0's {len(fwd_errs)} forward launches vs the plain "
         f"version on their own q, k, v: at most {span(fwd_errs, 0)[1]:.3f} "
@@ -2169,7 +2256,7 @@ def train_phase(torch, args, counts, FA) -> dict:
                library_ms=median_ms(torch, sdpa_backward, args.reps, flush),
                library="scaled_dot_product_attention backward",
                library_share_of_limit=lib_share[0],
-               library_normwise=lib_share[1],
+               library_normwise=lib_share[1], cases=bwd_cases,
                shape=dict(BH=BH, S=S, dh=dh, dtype="bfloat16", causal=True))
     del oo, qq, kk, vv
     rec["library_ratio"] = rec["ms"] / rec["library_ms"]

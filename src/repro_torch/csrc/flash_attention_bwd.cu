@@ -2,8 +2,8 @@
 // plain C interface (ctypes) by src/repro_torch/kernels/flash_attention.py,
 // which also holds the plain PyTorch version and the autograd Function.
 // The entry point launches on the caller's stream, allocates nothing (the
-// wrapper hands it the float32 scratch ``delta``), and returns
-// cudaGetLastError().
+// wrapper hands it the float32 scratch ``delta`` and, for the tensor-core
+// path, the scratch ``qs``), and returns cudaGetLastError().
 //
 // flash_attention_backward
 //   Replaces no Pallas kernel: the reference has only the forward
@@ -24,27 +24,44 @@
 //     dQ_i  = scale * sum_j bf(dS_ij) k_j
 //   bf() rounds to the inputs' type (P to v's type, as the forward rounds
 //   it before P.V; a no-op in float32).
-//   Three kernels, no float atomics, so two calls on the same inputs agree
-//   bit for bit: rowdot_kernel (D, one warp a row), then a dK/dV kernel
-//   whose block owns a tile of keys and walks the q tiles that reach it,
-//   then a dQ kernel whose block owns a tile of q rows and walks the KV
-//   tiles it reaches.  Causal walks skip the tiles wholly in the future,
+//   No float atomics, so two calls on the same inputs agree bit for bit:
+//   rowdot_kernel (D, one warp a row), then a dK/dV kernel whose block
+//   owns a tile of keys and walks the q rows that reach them, then a dQ
+//   kernel whose block owns a tile of q rows and walks the keys they
+//   reach (two grids that both recompute P and dS: 7 products of S x S x
+//   dh in place of 5).  Causal walks skip the tiles wholly in the future,
 //   window walks those wholly behind the window; the heaviest blocks are
-//   issued first.  P and dS are recomputed in both the dK/dV and the dQ
-//   kernel (7 products of S x S x dh in place of 5).
+//   issued first.
 //   Bound on this card, at starcoder2-7b's training shape (BH = 4 * 36,
 //   S = 2048, dh = 128, bf16, causal): operations — 5 products of the
 //   causal half, 5 * 2 * dh * BH * S (S + 1) / 2 = 386.7 GFLOP at 989
 //   TFLOP/s is 0.391 ms, against 5 * 75.5 MB read (q, k, v, o, do) and
 //   3 * 75.5 MB written at 3.35 TB/s, 0.181 ms.  So the tensor cores have
-//   to carry the products:
-//   * bf16 with dh 64 or 128: mma.sync m16n8k16 (bf16 in, float32
-//     accumulators), 4 warps a block, each warp 16 keys (dK/dV) or 16 q
-//     rows (dQ); operands through ldmatrix from shared-memory tiles padded
-//     by 16 bytes a row (no bank conflicts); P and dS go from the
-//     accumulator layout straight into the A operand of the next product.
-//     Tiles are loaded with 16-byte loads and a block barrier, no
-//     pipeline: a simple first kernel (wgmma and TMA are later work).
+//   to carry the products, and only wgmma reaches their full rate:
+//   * bf16 with dh 64 or 128: the forward's building blocks (hopper.cuh).
+//     scale_q_kernel writes qs = q * scale in bf16 once (75.5 MB each way
+//     at this shape, ~0.05 ms), so both grids bring Qs by TMA as it is.
+//     Each grid is 384 threads a block in three warpgroups: a producer
+//     (24 registers after setmaxnreg) whose one thread keeps TMA loads in
+//     flight into a ring of stages with full and empty mbarriers, and two
+//     consumers of 64 keys (dK/dV) or 64 q rows (dQ) each, 240 registers.
+//     - dkdv_wgmma_kernel<DH, NS>: 128 keys a block; K and V resident,
+//       Qs, dO (64 rows) and the rows' lse and D (written by the producer
+//       warp) a stage.  Per stage S^T = K.Qs^T and dP^T = V.dO^T
+//       (m64n64k16 from shared memory), P^T and dS^T in the accumulators,
+//       dV += P^T.dO and dK += dS^T.Qs with the A operand from registers
+//       and dO, Qs read MN-major (the transpose bit).  Registers a
+//       consumer thread: dK and dV DH / 2 each (64 + 64 at dh 128), S^T
+//       and dP^T 32 + 32, P^T and dS^T packed 16 + 16.
+//     - dq_wgmma_kernel<DH, NS>: 128 q rows a block; Qs and dO resident,
+//       K and V (64 keys) a stage.  S = Qs.K^T, dP = dO.V^T, dS, then
+//       dQ += dS.K (K read MN-major).  Registers: dQ DH / 2, S and dP
+//       32 + 32, dS packed 16.
+//     Stages: dK/dV 3 at dh 128 (163 KB), 4 at dh 64; dQ 4 at both (193
+//     / 97 KB); 2 to 4 stages time the same (tools/flash_variants.py
+//     ablations-bwd).  dK, dV and dQ are staged in the consumer's rows of the
+//     resident tiles and stored by TMA (3-D maps over (dh, S, BH): the
+//     rows past S read as zeros and are not written).
 //   * everything else (float32, where the tensor cores' TF32 would miss
 //     the reference's 1e-5, and bf16 of other widths up to 256): CUDA
 //     cores, 128 threads on 16 x 16 tiles of scores in shared memory,
@@ -54,6 +71,8 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -136,384 +155,460 @@ __global__ void __launch_bounds__(128)
 }
 
 // ---------------------------------------------------------------------------
-// bf16, dh 64 / 128: mma.sync m16n8k16
+// bf16, dh 64 / 128: TMA rings + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int WG_BLOCK = 128;   // keys a dK/dV block, q rows a dQ block
+constexpr int WG_STEP = 64;     // q rows a dK/dV stage, keys a dQ stage
+constexpr int BLOCK_BOX = WG_BLOCK * BOX_ROW_BYTES;   // 16 KB
+constexpr int STEP_BOX = WG_STEP * BOX_ROW_BYTES;     // 8 KB
+constexpr int CONSUMER_REGS = 240;       // 128 x 24 + 256 x 240 <= 65,536
+constexpr int PRODUCER_REGS = 24;
 
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// four 8 x 8 bf16 matrices from shared memory, lanes 8i..8i+7 giving the
-// row addresses of matrix i; .trans hands each lane a column pair instead
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// C (16 x 8, float32) += A (16 x 16, bf16, row-major fragment) . B (16 x 8)
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Shared tiles are bf16 [rows][DH + 8]: a row of 16 * (DH / 8 + 1) bytes,
-// so the 8 row addresses of an ldmatrix fall on 8 different 16-byte bank
-// groups.  Operand addresses (lane = 0..31), for a 16 x 16 block at (r0,
-// c0) of a tile:
-//   A, row-major from X[m][k]:           row r0 + (lane & 15),
-//                                        col c0 + (lane >> 4) * 8
-//   B of two n-blocks from X[n][k]:      row r0 + (lane & 7) + (lane >> 4) * 8,
-//     (K^T, Q^T, V^T, dO^T)              col c0 + ((lane >> 3) & 1) * 8
-//   B of two n-blocks from X[k][n], .trans:
-//     (dO, Qs, K as k x n)               row r0 + (lane & 7) + ((lane >> 3) & 1) * 8,
-//                                        col c0 + (lane >> 4) * 8
-// the last two give {b0, b1} of n-block 0 in r[0], r[1] and of n-block 1 in
-// r[2], r[3].
-template <int DH>
-__device__ __forceinline__ uint32_t a_addr(uint32_t tile, int r0, int c0,
-                                           int lane) {
-  return tile + ((r0 + (lane & 15)) * (DH + 8) + c0 + (lane >> 4) * 8) * 2;
-}
-template <int DH>
-__device__ __forceinline__ uint32_t bn_addr(uint32_t tile, int r0, int c0,
-                                            int lane) {
-  return tile + ((r0 + (lane & 7) + (lane >> 4) * 8) * (DH + 8) + c0 +
-                 ((lane >> 3) & 1) * 8) *
-                    2;
-}
-template <int DH>
-__device__ __forceinline__ uint32_t bt_addr(uint32_t tile, int r0, int c0,
-                                            int lane) {
-  return tile + ((r0 + (lane & 7) + ((lane >> 3) & 1) * 8) * (DH + 8) + c0 +
-                 (lane >> 4) * 8) *
-                    2;
-}
-
-// rows [row0, row0 + n) of a (S, DH) head into a padded tile, zeros past S;
-// with ``scale`` != 0 each value is multiplied by it and rounded to bf16
-// (q * scale, as the forward rounds it)
-template <int DH>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          int row0, int n, int S,
-                                          float scale) {
-  constexpr int CH = DH / 8;   // 16-byte chunks a row
-  for (int i = threadIdx.x; i < n * CH; i += blockDim.x) {
-    const int r = i / CH, c = i % CH;
-    uint4 x = make_uint4(0, 0, 0, 0);
-    if (row0 + r < S) {
-      x = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * DH +
-                                          c * 8);
-      if (scale != 0.f) {
-        __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&x);
+// qs = q * scale rounded to bf16 (the forward's rounding), 8 values a
+// thread a step: both products with qs read it from this copy by TMA
+__global__ void __launch_bounds__(256)
+    scale_q_kernel(const uint4* __restrict__ q, uint4* __restrict__ qs,
+                   long n8, float scale) {
+  for (long i = (long)blockIdx.x * 256 + threadIdx.x; i < n8;
+       i += (long)gridDim.x * 256) {
+    uint4 x = q[i];
+    __nv_bfloat162* e = reinterpret_cast<__nv_bfloat162*>(&x);
 #pragma unroll
-        for (int h = 0; h < 4; ++h) {
-          const float2 f = __bfloat1622float2(e[h]);
-          e[h] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    for (int h = 0; h < 4; ++h) {
+      const float2 f = __bfloat1622float2(e[h]);
+      e[h] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    }
+    qs[i] = x;
+  }
+}
+
+// P and dS of one score on the tensor-core path: P = exp(c - lse) as
+// exp2((c - lse) log2 e) (one MUFU.EX2; the rounding of c - lse is all
+// that is added to expf's), dS = P (dp - D), times 1 - tanh^2 with a
+// softcap
+__device__ __forceinline__ void p_ds_tc(float s, float dp, float lse, float d,
+                                        float softcap, float& p, float& ds) {
+  float c = s, th = 0.f;
+  if (softcap > 0.f) {
+    th = tanhf(s / softcap);
+    c = th * softcap;
+  }
+  p = exp2f((c - lse) * LOG2E);
+  ds = p * (dp - d);
+  ds *= softcap > 0.f ? 1.f - th * th : 1.f;
+}
+
+// the shared memory of dkdv_wgmma_kernel<DH, NS>: K and V of the block's
+// 128 keys, NS stages of Qs and dO (64 rows each) and of lse and D (64
+// floats each), the barriers, and room to align to 1 KB
+template <int DH, int NS>
+constexpr size_t dkdv_smem() {
+  return (size_t)(DH / 64) * (2 * BLOCK_BOX + 2 * NS * STEP_BOX) +
+         NS * 2 * WG_STEP * 4 + 8 * (1 + 2 * NS) + 1024;
+}
+
+// One block owns 128 keys of one head, 64 for each consumer warpgroup,
+// and walks the q rows that reach them, 64 a stage.  Warpgroup 0 is the
+// producer: one thread loads K and V once, then stage by stage Qs and dO
+// with TMA into a ring of NS stages; its warp writes each stage's lse
+// and D rows into shared memory before the thread arms the stage's full
+// barrier.  Per stage a consumer computes S^T = K.Qs^T and dP^T = V.dO^T
+// (its 64 keys x the stage's 64 rows, m64n64k16 from shared memory), P^T
+// and dS^T in the accumulators, then dV += P^T.dO and dK += dS^T.Qs with
+// P^T and dS^T from registers (the layout their accumulators have) and dO
+// and Qs read MN-major.  dK and dV are staged in the consumer's rows of K
+// and V and stored by TMA, without the keys past S.
+template <int DH, int NS>
+__global__ void __launch_bounds__(384, 1)
+    dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tqs,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdk,
+                      const __grid_constant__ CUtensorMap tdv,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, int S, int causal,
+                      int window, float softcap) {
+  constexpr int NB = DH / 64;
+  constexpr int KV_TILE = NB * BLOCK_BOX, ST_TILE = NB * STEP_BOX;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gen = smem_raw + (base - raw);   // base, generic address
+  const uint32_t sk = base, sv = sk + KV_TILE, sq = sv + KV_TILE,
+                 sdo = sq + NS * ST_TILE, srow = sdo + NS * ST_TILE;
+  float* const rows_lse = reinterpret_cast<float*>(gen + (srow - base));
+  float* const rows_d = rows_lse + NS * WG_STEP;
+  const uint32_t kvbar = srow + NS * 2 * WG_STEP * 4;
+  const uint32_t full = kvbar + 8, empty = full + 8 * NS;
+
+  // one head's key tiles are neighbours in the grid; causal: the lowest
+  // keys (the longest walks) first
+  const int nkt = (S + WG_BLOCK - 1) / WG_BLOCK;
+  const int bh = blockIdx.x / nkt;
+  const int k0 = (blockIdx.x % nkt) * WG_BLOCK;
+  // the rows that reach a key of the block: causal from k0, a window up
+  // to the last key's W - 1 rows on; producer and consumers walk the same
+  const int i_begin = causal ? k0 : 0;
+  const int i_end = rows_end(k0, WG_BLOCK, S, window);
+
+  if (threadIdx.x == 0) {
+    mbar_init(kvbar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---- producer: warp 0 ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    const int lane = threadIdx.x & 31;
+    if (threadIdx.x < 32) {
+      if (lane == 0) {
+        mbar_expect_tx(kvbar, 2 * KV_TILE);
+        for (int b = 0; b < NB; ++b) {
+          tma_load(sk + b * BLOCK_BOX, &tk, b * 64, k0, bh, kvbar);
+          tma_load(sv + b * BLOCK_BOX, &tv, b * 64, k0, bh, kvbar);
+        }
+      }
+      int stage = 0, phase = 0;
+      for (int i0 = i_begin; i0 < i_end; i0 += WG_STEP) {
+        mbar_wait(empty + 8 * stage, phase ^ 1);   // round 0 passes
+        for (int r = lane; r < WG_STEP; r += 32) {
+          const int row = i0 + r;
+          rows_lse[stage * WG_STEP + r] =
+              row < S ? lse[(size_t)bh * S + row] : 0.f;
+          rows_d[stage * WG_STEP + r] =
+              row < S ? delta[(size_t)bh * S + row] : 0.f;
+        }
+        __syncwarp();   // the warp's rows before the arrival below
+        if (lane == 0) {
+          const uint32_t bar = full + 8 * stage;
+          mbar_expect_tx(bar, 2 * ST_TILE);
+          for (int b = 0; b < NB; ++b) {
+            tma_load(sq + stage * ST_TILE + b * STEP_BOX, &tqs, b * 64, i0,
+                     bh, bar);
+            tma_load(sdo + stage * ST_TILE + b * STEP_BOX, &tdo, b * 64, i0,
+                     bh, bar);
+          }
+        }
+        if (++stage == NS) {
+          stage = 0;
+          phase ^= 1;
         }
       }
     }
-    *reinterpret_cast<uint4*>(dst + r * (DH + 8) + c * 8) = x;
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int cw = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    // this thread's keys (rows of S^T): key and key + 8
+    const int key = k0 + cw * 64 + warp * 16 + g;
+    const uint32_t my_k = sk + cw * 64 * BOX_ROW_BYTES,
+                   my_v = sv + cw * 64 * BOX_ROW_BYTES;
+
+    float dk[DH / 2], dv[DH / 2];
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
+    float st[WG_STEP / 2], dpt[WG_STEP / 2];
+    uint32_t pa[WG_STEP / 16][4], da[WG_STEP / 16][4];
+
+    mbar_wait(kvbar, 0);
+    int stage = 0, phase = 0;
+    for (int i0 = i_begin; i0 < i_end; i0 += WG_STEP) {
+      const uint32_t q_at = sq + stage * ST_TILE, do_at = sdo + stage * ST_TILE;
+      mbar_wait(full + 8 * stage, phase);
+      wgmma_fence();
+      wgmma_rows_dot<DH, WG_STEP>(st, my_k, BLOCK_BOX, q_at, STEP_BOX);
+      wgmma_rows_dot<DH, WG_STEP>(dpt, my_v, BLOCK_BOX, do_at, STEP_BOX);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      // a stage needs the mask where a key may pass a row, a row may be
+      // W or more past a key, or a key or a row lies past S
+      const bool edge = (causal && i0 < k0 + WG_BLOCK - 1) ||
+                        i0 + WG_STEP > S || k0 + WG_BLOCK > S ||
+                        i0 + WG_STEP - 1 - k0 >= window;
+      const float* const ls = rows_lse + stage * WG_STEP;
+      const float* const dl = rows_d + stage * WG_STEP;
+      // element i: key key + 8 ((i >> 1) & 1), stage row 8 (i / 4) + 2t +
+      // (i & 1)
+#pragma unroll
+      for (int n = 0; n < WG_STEP / 8; ++n) {
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + 8 * n + 2 * t);
+        const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * n + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * n + e;
+          float p, ds;
+          p_ds_tc(st[i], dpt[i], (e & 1) ? l2.y : l2.x, (e & 1) ? d2.y : d2.x,
+                  softcap, p, ds);
+          if (edge && masked(key + 8 * ((e >> 1) & 1), i0 + 8 * n + 2 * t +
+                             (e & 1), S, causal, window))
+            p = ds = 0.f;
+          st[i] = p;
+          dpt[i] = ds;
+        }
+      }
+      pack_a(st, pa);
+      pack_a(dpt, da);
+      wgmma_fence();
+      wgmma_acc_rows<DH, WG_STEP>(dv, pa, do_at, STEP_BOX);
+      wgmma_acc_rows<DH, WG_STEP>(dk, da, q_at, STEP_BOX);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      release(empty + 8 * stage, lane);
+      if (++stage == NS) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+
+    // dK and dV in bf16 into this consumer's rows of K and V (all its
+    // products have retired; the other consumer reads none of them), then
+    // one thread stores them by TMA, which drops the keys past S
+    const float one[2] = {1.f, 1.f};
+    uint8_t* const row0 = gen + cw * 64 * BOX_ROW_BYTES +
+                          (warp * 16 + g) * BOX_ROW_BYTES + 4 * t;
+    stage_rows(row0, dk, one, g, BLOCK_BOX);
+    stage_rows(row0 + KV_TILE, dv, one, g, BLOCK_BOX);
+    fence_async_smem();
+    warpgroup_sync(1 + cw);
+    if (tid == 0 && k0 + cw * 64 < S) {
+      for (int b = 0; b < NB; ++b) {
+        tma_store(&tdk, my_k + b * BLOCK_BOX, b * 64, k0 + cw * 64, bh);
+        tma_store(&tdv, my_v + b * BLOCK_BOX, b * 64, k0 + cw * 64, bh);
+      }
+      tma_store_drain();
+    }
   }
 }
 
-constexpr int MMA_BC = 64;   // keys a dK/dV block owns: 4 warps x 16
-constexpr int MMA_BQ = 64;   // q rows a dQ block owns: 4 warps x 16
-
-template <int DH, int BR>
-constexpr size_t dkdv_smem() {
-  return (size_t)(2 * MMA_BC + 2 * BR) * (DH + 8) * 2 + 2 * BR * 4;
-}
-template <int DH, int BC>
+// the shared memory of dq_wgmma_kernel<DH, NS>: Qs and dO of the block's
+// 128 rows, NS stages of K and of V (64 keys each), the barriers, and room
+// to align to 1 KB
+template <int DH, int NS>
 constexpr size_t dq_smem() {
-  return (size_t)(2 * MMA_BQ + 2 * BC) * (DH + 8) * 2;
+  return (size_t)(DH / 64) * (2 * BLOCK_BOX + 2 * NS * STEP_BOX) +
+         8 * (1 + 4 * NS) + 1024;
 }
 
-// One block owns MMA_BC keys of one head (warp w: keys 16w..16w+15) and
-// walks the q tiles of BR rows that reach them.  Per q tile: S^T = K.Qs^T
-// and dP^T = V.dO^T (M = the warp's keys, N = the tile's rows, K = dh),
-// then P^T and dS^T elementwise in the accumulators, then dV += P^T.dO and
-// dK += dS^T.Qs (M = keys, K = rows, N = dh) with P^T and dS^T repacked
-// as A operands in registers.
-template <int DH, int BR>
-__global__ void __launch_bounds__(128)
-    dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+// One block owns 128 q rows of one head, 64 for each consumer warpgroup,
+// and walks the keys they reach, 64 a stage: the forward's skeleton.  The
+// producer loads Qs and dO once, then K and V stage by stage into a ring
+// of NS stages.  Per stage a consumer computes S = Qs.K^T and dP = dO.V^T
+// (m64n64k16 from shared memory), dS in the accumulator, then dQ += dS.K
+// with dS from registers and K read MN-major.  V is released once dP is
+// read, K once dS.K has retired.  dQ * scale is staged in the consumer's
+// rows of Qs and stored by TMA, without the rows past S.
+template <int DH, int NS>
+__global__ void __launch_bounds__(384, 1)
+    dq_wgmma_kernel(const __grid_constant__ CUtensorMap tqs,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdq,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int S, int causal, int window,
-                    float scale, float softcap) {
-  constexpr int LDS = DH + 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* const ks = reinterpret_cast<bf16*>(smem_raw);
-  bf16* const vs = ks + MMA_BC * LDS;
-  bf16* const qs = vs + MMA_BC * LDS;
-  bf16* const dos = qs + BR * LDS;
-  float* const ls = reinterpret_cast<float*>(dos + BR * LDS);
-  float* const dl = ls + BR;
-  const uint32_t ks_u = smem_u32(ks), vs_u = smem_u32(vs),
-                 qs_u = smem_u32(qs), dos_u = smem_u32(dos);
+                    const float* __restrict__ delta, int S, int causal,
+                    int window, float scale, float softcap) {
+  constexpr int NB = DH / 64;
+  constexpr int Q_TILE = NB * BLOCK_BOX, KV_TILE = NB * STEP_BOX;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  uint8_t* const gen = smem_raw + (base - raw);
+  const uint32_t sq = base, sdo = sq + Q_TILE, sk = sdo + Q_TILE,
+                 sv = sk + NS * KV_TILE;
+  const uint32_t qbar = sv + NS * KV_TILE;
+  const uint32_t full_k = qbar + 8, full_v = full_k + 8 * NS,
+                 empty_k = full_v + 8 * NS, empty_v = empty_k + 8 * NS;
 
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * MMA_BC;   // the heaviest causal tiles first
-  const size_t base = (size_t)bh * S * DH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  // one head's q tiles are neighbours in the grid, heaviest first
+  const int nqt = (S + WG_BLOCK - 1) / WG_BLOCK;
+  const int bh = blockIdx.x / nqt;
+  const int q0 = (nqt - 1 - blockIdx.x % nqt) * WG_BLOCK;
+  // the keys the block's rows reach: a window from the first row's lowest
+  // key in reach, causal up to its last row
+  const int j_begin = keys_begin(q0, window, WG_STEP);
+  const int j_end = causal ? min(S, q0 + WG_BLOCK) : S;
 
-  load_tile<DH>(ks, k + base, k0, MMA_BC, S, 0.f);
-  load_tile<DH>(vs, v + base, k0, MMA_BC, S, 0.f);
-
-  float dka[DH / 8][4], dva[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  const int i_begin = causal ? k0 : 0;   // BR divides MMA_BC
-  const int i_end = rows_end(k0, MMA_BC, S, window);
-  for (int i0 = i_begin; i0 < i_end; i0 += BR) {
-    __syncthreads();   // the previous tile's reads are done
-    load_tile<DH>(qs, q + base, i0, BR, S, scale);
-    load_tile<DH>(dos, dout + base, i0, BR, S, 0.f);
-    if (threadIdx.x < BR) {
-      const int row = i0 + threadIdx.x;
-      ls[threadIdx.x] = row < S ? lse[(size_t)bh * S + row] : 0.f;
-      dl[threadIdx.x] = row < S ? delta[(size_t)bh * S + row] : 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty_k + 8 * s, 8);
+      mbar_init(empty_v + 8 * s, 8);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    float st[BR / 8][4], dpt[BR / 8][4];
-#pragma unroll
-    for (int n = 0; n < BR / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      uint32_t ak[4], av[4];
-      ldsm_x4(ak, a_addr<DH>(ks_u, warp * 16, kk * 16, lane));
-      ldsm_x4(av, a_addr<DH>(vs_u, warp * 16, kk * 16, lane));
-#pragma unroll
-      for (int nb = 0; nb < BR / 16; ++nb) {
-        uint32_t bq[4], bo[4];
-        ldsm_x4(bq, bn_addr<DH>(qs_u, nb * 16, kk * 16, lane));
-        ldsm_x4(bo, bn_addr<DH>(dos_u, nb * 16, kk * 16, lane));
-        mma(st[2 * nb], ak, bq[0], bq[1]);
-        mma(st[2 * nb + 1], ak, bq[2], bq[3]);
-        mma(dpt[2 * nb], av, bo[0], bo[1]);
-        mma(dpt[2 * nb + 1], av, bo[2], bo[3]);
+  if (threadIdx.x < 128) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qbar, 2 * Q_TILE);
+      for (int b = 0; b < NB; ++b) {
+        tma_load(sq + b * BLOCK_BOX, &tqs, b * 64, q0, bh, qbar);
+        tma_load(sdo + b * BLOCK_BOX, &tdo, b * 64, q0, bh, qbar);
+      }
+      int stage = 0, phase = 0;
+      for (int j0 = j_begin; j0 < j_end; j0 += WG_STEP) {
+        mbar_wait(empty_k + 8 * stage, phase ^ 1);   // round 0 passes
+        mbar_expect_tx(full_k + 8 * stage, KV_TILE);
+        for (int b = 0; b < NB; ++b)
+          tma_load(sk + stage * KV_TILE + b * STEP_BOX, &tk, b * 64, j0, bh,
+                   full_k + 8 * stage);
+        mbar_wait(empty_v + 8 * stage, phase ^ 1);
+        mbar_expect_tx(full_v + 8 * stage, KV_TILE);
+        for (int b = 0; b < NB; ++b)
+          tma_load(sv + stage * KV_TILE + b * STEP_BOX, &tv, b * 64, j0, bh,
+                   full_v + 8 * stage);
+        if (++stage == NS) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
-    // element e of n-block nb: key 16 warp + g (+8 for e >= 2), row
-    // 8 nb + 2t + (e & 1) of the tile
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+    const int cw = threadIdx.x / 128 - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid >> 5, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    // this thread's rows: r0 (elements 0, 1 of each 8-column group) and
+    // r0 + 8 (elements 2, 3)
+    const int r0 = q0 + cw * 64 + warp * 16 + g;
+    const uint32_t my_q = sq + cw * 64 * BOX_ROW_BYTES,
+                   my_do = sdo + cw * 64 * BOX_ROW_BYTES;
+    float lr[2], dr[2];
 #pragma unroll
-    for (int nb = 0; nb < BR / 8; ++nb)
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 8 * h;
+      lr[h] = row < S ? lse[(size_t)bh * S + row] : 0.f;
+      dr[h] = row < S ? delta[(size_t)bh * S + row] : 0.f;
+    }
+    float dq[DH / 2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + warp * 16 + g + ((e >> 1) << 3);
-        const int rl = nb * 8 + 2 * t + (e & 1);
+    for (int i = 0; i < DH / 2; ++i) dq[i] = 0.f;
+    float s[WG_STEP / 2], dp[WG_STEP / 2];
+    uint32_t da[WG_STEP / 16][4];
+
+    mbar_wait(qbar, 0);
+    int stage = 0, phase = 0;
+    for (int j0 = j_begin; j0 < j_end; j0 += WG_STEP) {
+      const uint32_t k_at = sk + stage * KV_TILE, v_at = sv + stage * KV_TILE;
+      mbar_wait(full_k + 8 * stage, phase);
+      mbar_wait(full_v + 8 * stage, phase);
+      wgmma_fence();
+      wgmma_rows_dot<DH, WG_STEP>(s, my_q, BLOCK_BOX, k_at, STEP_BOX);
+      wgmma_rows_dot<DH, WG_STEP>(dp, my_do, BLOCK_BOX, v_at, STEP_BOX);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      release(empty_v + 8 * stage, lane);
+      const bool edge = (causal && j0 + WG_STEP - 1 > q0) ||
+                        j0 + WG_STEP > S || q0 + WG_BLOCK > S ||
+                        q0 + WG_BLOCK - 1 - j0 >= window;
+      // element i: row r0 + 8 ((i >> 1) & 1), key j0 + 8 (i / 4) + 2t +
+      // (i & 1)
+#pragma unroll
+      for (int i = 0; i < WG_STEP / 2; ++i) {
+        const int h = (i >> 1) & 1;
         float p, ds;
-        p_ds(st[nb][e], dpt[nb][e], ls[rl], dl[rl], softcap,
-             masked(key, i0 + rl, S, causal, window), p, ds);
-        st[nb][e] = p;
-        dpt[nb][e] = ds;
+        p_ds_tc(s[i], dp[i], lr[h], dr[h], softcap, p, ds);
+        if (edge && masked(j0 + 8 * (i >> 2) + 2 * t + (i & 1), r0 + 8 * h,
+                           S, causal, window))
+          ds = 0.f;
+        s[i] = ds;
       }
-#pragma unroll
-    for (int kb = 0; kb < BR / 16; ++kb) {
-      const uint32_t ap[4] = {pack2(st[2 * kb][0], st[2 * kb][1]),
-                              pack2(st[2 * kb][2], st[2 * kb][3]),
-                              pack2(st[2 * kb + 1][0], st[2 * kb + 1][1]),
-                              pack2(st[2 * kb + 1][2], st[2 * kb + 1][3])};
-      const uint32_t ad[4] = {pack2(dpt[2 * kb][0], dpt[2 * kb][1]),
-                              pack2(dpt[2 * kb][2], dpt[2 * kb][3]),
-                              pack2(dpt[2 * kb + 1][0], dpt[2 * kb + 1][1]),
-                              pack2(dpt[2 * kb + 1][2], dpt[2 * kb + 1][3])};
-#pragma unroll
-      for (int nb = 0; nb < DH / 16; ++nb) {
-        uint32_t bo[4], bq[4];
-        ldsm_x4_t(bo, bt_addr<DH>(dos_u, kb * 16, nb * 16, lane));
-        ldsm_x4_t(bq, bt_addr<DH>(qs_u, kb * 16, nb * 16, lane));
-        mma(dva[2 * nb], ap, bo[0], bo[1]);
-        mma(dva[2 * nb + 1], ap, bo[2], bo[3]);
-        mma(dka[2 * nb], ad, bq[0], bq[1]);
-        mma(dka[2 * nb + 1], ad, bq[2], bq[3]);
+      pack_a(s, da);
+      wgmma_fence();
+      wgmma_acc_rows<DH, WG_STEP>(dq, da, k_at, STEP_BOX);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dq);
+      release(empty_k + 8 * stage, lane);
+      if (++stage == NS) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-  }
 
-  // element e of n-block n: key 16 warp + g (+8 for e >= 2), column
-  // 8n + 2t + (e & 1)
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int key = k0 + warp * 16 + g + 8 * h;
-    if (key >= S) continue;
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n) {
-      const size_t at = base + (size_t)key * DH + n * 8 + 2 * t;
-      *reinterpret_cast<uint32_t*>(dk + at) =
-          pack2(dka[n][2 * h], dka[n][2 * h + 1]);
-      *reinterpret_cast<uint32_t*>(dv + at) =
-          pack2(dva[n][2 * h], dva[n][2 * h + 1]);
+    // dQ * scale in bf16 into this consumer's rows of Qs (its last S has
+    // been read), then one thread stores them by TMA without the rows past
+    // S
+    const float mul[2] = {scale, scale};
+    stage_rows(gen + cw * 64 * BOX_ROW_BYTES + (warp * 16 + g) * BOX_ROW_BYTES +
+                   4 * t,
+               dq, mul, g, BLOCK_BOX);
+    fence_async_smem();
+    warpgroup_sync(1 + cw);
+    if (tid == 0 && q0 + cw * 64 < S) {
+      for (int b = 0; b < NB; ++b)
+        tma_store(&tdq, my_q + b * BLOCK_BOX, b * 64, q0 + cw * 64, bh);
+      tma_store_drain();
     }
   }
 }
 
-// One block owns MMA_BQ q rows of one head (warp w: rows 16w..16w+15) and
-// walks the KV tiles of BC keys they reach.  Per KV tile: S = Qs.K^T and
-// dP = dO.V^T (M = rows, N = keys, K = dh), dS elementwise, then dQ +=
-// dS.K (M = rows, K = keys, N = dh) with dS repacked as the A operand.
-template <int DH, int BC>
-__global__ void __launch_bounds__(128)
-    dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, bf16* __restrict__ dq,
-                  int S, int causal, int window, float scale, float softcap) {
-  constexpr int LDS = DH + 8;
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  bf16* const qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* const dos = qs + MMA_BQ * LDS;
-  bf16* const ks = dos + MMA_BQ * LDS;
-  bf16* const vs = ks + BC * LDS;
-  const uint32_t ks_u = smem_u32(ks), vs_u = smem_u32(vs),
-                 qs_u = smem_u32(qs), dos_u = smem_u32(dos);
-
-  const int bh = blockIdx.x;
-  // the heaviest causal tiles (the last rows) first
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * MMA_BQ;
-  const size_t base = (size_t)bh * S * DH;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int rl0 = warp * 16 + g;   // this thread's rows: rl0 and rl0 + 8
-
-  load_tile<DH>(qs, q + base, q0, MMA_BQ, S, scale);
-  load_tile<DH>(dos, dout + base, q0, MMA_BQ, S, 0.f);
-  float lr[2], dr[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + rl0 + 8 * h;
-    lr[h] = row < S ? lse[(size_t)bh * S + row] : 0.f;
-    dr[h] = row < S ? delta[(size_t)bh * S + row] : 0.f;
-  }
-  float dqa[DH / 8][4];
-#pragma unroll
-  for (int n = 0; n < DH / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[n][e] = 0.f;
-
-  const int j_begin = keys_begin(q0, window, BC);
-  const int j_end = causal ? min(S, q0 + MMA_BQ) : S;
-  for (int j0 = j_begin; j0 < j_end; j0 += BC) {
-    __syncthreads();
-    load_tile<DH>(ks, k + base, j0, BC, S, 0.f);
-    load_tile<DH>(vs, v + base, j0, BC, S, 0.f);
-    __syncthreads();
-
-    float s[BC / 8][4], dp[BC / 8][4];
-#pragma unroll
-    for (int n = 0; n < BC / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DH / 16; ++kk) {
-      uint32_t aq[4], ao[4];
-      ldsm_x4(aq, a_addr<DH>(qs_u, warp * 16, kk * 16, lane));
-      ldsm_x4(ao, a_addr<DH>(dos_u, warp * 16, kk * 16, lane));
-#pragma unroll
-      for (int nb = 0; nb < BC / 16; ++nb) {
-        uint32_t bk[4], bv[4];
-        ldsm_x4(bk, bn_addr<DH>(ks_u, nb * 16, kk * 16, lane));
-        ldsm_x4(bv, bn_addr<DH>(vs_u, nb * 16, kk * 16, lane));
-        mma(s[2 * nb], aq, bk[0], bk[1]);
-        mma(s[2 * nb + 1], aq, bk[2], bk[3]);
-        mma(dp[2 * nb], ao, bv[0], bv[1]);
-        mma(dp[2 * nb + 1], ao, bv[2], bv[3]);
-      }
-    }
-    // element e of n-block nb: row rl0 (+8 for e >= 2), key
-    // j0 + 8 nb + 2t + (e & 1)
-#pragma unroll
-    for (int nb = 0; nb < BC / 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int key = j0 + nb * 8 + 2 * t + (e & 1);
-        float p, ds;
-        p_ds(s[nb][e], dp[nb][e], lr[h], dr[h], softcap,
-             masked(key, q0 + rl0 + 8 * h, S, causal, window), p, ds);
-        s[nb][e] = ds;
-      }
-#pragma unroll
-    for (int kb = 0; kb < BC / 16; ++kb) {
-      const uint32_t ad[4] = {pack2(s[2 * kb][0], s[2 * kb][1]),
-                              pack2(s[2 * kb][2], s[2 * kb][3]),
-                              pack2(s[2 * kb + 1][0], s[2 * kb + 1][1]),
-                              pack2(s[2 * kb + 1][2], s[2 * kb + 1][3])};
-#pragma unroll
-      for (int nb = 0; nb < DH / 16; ++nb) {
-        uint32_t bk[4];
-        ldsm_x4_t(bk, bt_addr<DH>(ks_u, kb * 16, nb * 16, lane));
-        mma(dqa[2 * nb], ad, bk[0], bk[1]);
-        mma(dqa[2 * nb + 1], ad, bk[2], bk[3]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + rl0 + 8 * h;
-    if (row >= S) continue;
-#pragma unroll
-    for (int n = 0; n < DH / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dq + base + (size_t)row * DH + n * 8 +
-                                   2 * t) =
-          pack2(dqa[n][2 * h] * scale, dqa[n][2 * h + 1] * scale);
-  }
-}
-
-template <typename K>
-int allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-template <int DH, int BR, int BC>
-int launch_mma(const void* q, const void* k, const void* v, const void* dout,
-               const float* lse, const float* delta, void* dq, void* dk,
-               void* dv, int BH, int S, int causal, int window, float scale,
-               float softcap, cudaStream_t st) {
-  constexpr size_t s1 = dkdv_smem<DH, BR>(), s2 = dq_smem<DH, BC>();
-  int err = allow_smem(dkdv_mma_kernel<DH, BR>, s1);
-  if (err == 0) err = allow_smem(dq_mma_kernel<DH, BC>, s2);
+// qs, then the dK/dV grid, then the dQ grid, on one stream
+template <int DH, int NS_KV, int NS_Q>
+int launch_wgmma(const void* q, const void* k, const void* v,
+                 const void* dout, const float* lse, const float* delta,
+                 void* qs, void* dq, void* dk, void* dv, int BH, int S,
+                 int causal, int window, float scale, float softcap,
+                 cudaStream_t st) {
+  const long n8 = (long)BH * S * DH / 8;
+  const long blocks8 = (n8 + 255) / 256;
+  scale_q_kernel<<<(unsigned)(blocks8 < 132 * 16 ? blocks8 : 132 * 16), 256,
+                   0, st>>>((const uint4*)q, (uint4*)qs, n8, scale);
+  int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const dim3 g1(BH, (S + MMA_BC - 1) / MMA_BC), g2(BH, (S + MMA_BQ - 1) / MMA_BQ);
-  dkdv_mma_kernel<DH, BR><<<g1, 128, s1, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-      delta, (bf16*)dk, (bf16*)dv, S, causal, window, scale, softcap);
+  CUtensorMap tq64, tdo64, tk128, tv128, tdk, tdv, tq128, tdo128, tk64, tv64,
+      tdq;
+  if (!head_map(&tq64, qs, BH, S, DH, WG_STEP) ||
+      !head_map(&tdo64, dout, BH, S, DH, WG_STEP) ||
+      !head_map(&tk128, k, BH, S, DH, WG_BLOCK) ||
+      !head_map(&tv128, v, BH, S, DH, WG_BLOCK) ||
+      !head_map(&tdk, dk, BH, S, DH, WG_STEP) ||
+      !head_map(&tdv, dv, BH, S, DH, WG_STEP) ||
+      !head_map(&tq128, qs, BH, S, DH, WG_BLOCK) ||
+      !head_map(&tdo128, dout, BH, S, DH, WG_BLOCK) ||
+      !head_map(&tk64, k, BH, S, DH, WG_STEP) ||
+      !head_map(&tv64, v, BH, S, DH, WG_STEP) ||
+      !head_map(&tdq, dq, BH, S, DH, WG_STEP))
+    return (int)cudaErrorInvalidValue;
+  constexpr size_t s1 = dkdv_smem<DH, NS_KV>(), s2 = dq_smem<DH, NS_Q>();
+  static bool sized = false;
+  if (!sized) {
+    err = (int)allow_smem(dkdv_wgmma_kernel<DH, NS_KV>, s1);
+    if (err == 0) err = (int)allow_smem(dq_wgmma_kernel<DH, NS_Q>, s2);
+    if (err != 0) return err;
+    sized = true;
+  }
+  const unsigned blocks = (unsigned)BH * ((S + WG_BLOCK - 1) / WG_BLOCK);
+  dkdv_wgmma_kernel<DH, NS_KV><<<blocks, 384, s1, st>>>(
+      tq64, tdo64, tk128, tv128, tdk, tdv, lse, delta, S, causal, window,
+      softcap);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  dq_mma_kernel<DH, BC><<<g2, 128, s2, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout, lse,
-      delta, (bf16*)dq, S, causal, window, scale, softcap);
+  dq_wgmma_kernel<DH, NS_Q><<<blocks, 384, s2, st>>>(
+      tq128, tdo128, tk64, tv64, tdq, lse, delta, S, causal, window, scale,
+      softcap);
   return (int)cudaGetLastError();
 }
 
@@ -702,8 +797,8 @@ int launch_simt(const void* q, const void* k, const void* v, const void* dout,
                 void* dv, int BH, int S, int dh, int causal, int window,
                 float scale, float softcap, cudaStream_t st) {
   const size_t smem = simt_smem(dh);
-  int err = allow_smem(dkdv_simt_kernel<T, NC>, smem);
-  if (err == 0) err = allow_smem(dq_simt_kernel<T, NC>, smem);
+  int err = (int)allow_smem(dkdv_simt_kernel<T, NC>, smem);
+  if (err == 0) err = (int)allow_smem(dq_simt_kernel<T, NC>, smem);
   if (err != 0) return err;
   const dim3 grid(BH, (S + SB - 1) / SB);
   dkdv_simt_kernel<T, NC><<<grid, 128, smem, st>>>(
@@ -720,8 +815,8 @@ int launch_simt(const void* q, const void* k, const void* v, const void* dout,
 template <typename T>
 int backward(const void* q, const void* k, const void* v, const void* o,
              const float* lse, const void* dout, void* dq, void* dk, void* dv,
-             float* delta, int BH, int S, int dh, int causal, int window,
-             float scale, float softcap, cudaStream_t st) {
+             float* delta, void* qs, int BH, int S, int dh, int causal,
+             int window, float scale, float softcap, cudaStream_t st) {
   const long rows = (long)BH * S;
   rowdot_kernel<T><<<(unsigned)((rows + 3) / 4), 128, 0, st>>>(
       (const T*)o, (const T*)dout, delta, rows, dh);
@@ -729,12 +824,13 @@ int backward(const void* q, const void* k, const void* v, const void* o,
   if (err != 0) return err;
   if constexpr (sizeof(T) == 2) {
     if (dh == 128)
-      return launch_mma<128, 32, 64>(q, k, v, dout, lse, delta, dq, dk, dv,
-                                     BH, S, causal, window, scale, softcap,
-                                     st);
+      return launch_wgmma<128, 3, 4>(q, k, v, dout, lse, delta, qs, dq, dk,
+                                     dv, BH, S, causal, window, scale,
+                                     softcap, st);
     if (dh == 64)
-      return launch_mma<64, 64, 64>(q, k, v, dout, lse, delta, dq, dk, dv, BH,
-                                    S, causal, window, scale, softcap, st);
+      return launch_wgmma<64, 4, 4>(q, k, v, dout, lse, delta, qs, dq, dk, dv,
+                                    BH, S, causal, window, scale, softcap,
+                                    st);
   }
   if (dh <= 32)
     return launch_simt<T, 4>(q, k, v, dout, lse, delta, dq, dk, dv, BH, S, dh,
@@ -751,28 +847,39 @@ int backward(const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace
 
+// 1 where a call at (dh, is_bf16) runs the tensor-core kernels
+// (dkdv_wgmma_kernel, dq_wgmma_kernel: bf16 with dh 64 or 128; they read
+// q * scale from the ``qs`` scratch), 0 where it runs on the CUDA cores;
+// repro_flash_attention_bwd dispatches by it
+extern "C" int repro_flash_bwd_route(int dh, int is_bf16) {
+  return is_bf16 && (dh == 64 || dh == 128) ? 1 : 0;
+}
+
 // q, k, v, o, dout, dq, dk, dv: (BH, S, dh) contiguous, 16-byte aligned,
 // float32 or (is_bf16) bf16; lse: the forward's float32 (BH, S); delta:
-// float32 (BH, S) scratch; window > 0 masks keys window or more behind
-// the row (causal only), 0 means none; scale: dh^-0.5 rounded to q's
-// type, as the forward takes it; softcap <= 0 means none.  dh <= 256,
-// S <= 65535 * 16.
+// float32 (BH, S) scratch; qs: (BH, S, dh) scratch of q's type where
+// repro_flash_bwd_route says the tensor cores, else unused (may be null);
+// window > 0 masks keys window or more behind the row (causal only), 0
+// means none; scale: dh^-0.5 rounded to q's type, as the forward takes it;
+// softcap <= 0 means none.  dh <= 256, S <= 65535 * 16.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
                                          const void* v, const void* o,
                                          const float* lse, const void* dout,
                                          void* dq, void* dk, void* dv,
-                                         float* delta, int BH, int S, int dh,
-                                         int is_bf16, int causal, int window,
-                                         float scale, float softcap,
-                                         void* stream) {
+                                         float* delta, void* qs, int BH,
+                                         int S, int dh, int is_bf16,
+                                         int causal, int window, float scale,
+                                         float softcap, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (BH <= 0 || S <= 0) return 0;
   if (dh <= 0 || dh > 256 || window < 0 || (window > 0 && !causal))
     return (int)cudaErrorInvalidValue;
+  if (repro_flash_bwd_route(dh, is_bf16) && qs == nullptr)
+    return (int)cudaErrorInvalidValue;
   const int win = window > 0 ? window : INT_MAX;
   if (is_bf16)
-    return backward<bf16>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, S, dh,
-                          causal, win, scale, softcap, st);
-  return backward<float>(q, k, v, o, lse, dout, dq, dk, dv, delta, BH, S, dh,
-                         causal, win, scale, softcap, st);
+    return backward<bf16>(q, k, v, o, lse, dout, dq, dk, dv, delta, qs, BH, S,
+                          dh, causal, win, scale, softcap, st);
+  return backward<float>(q, k, v, o, lse, dout, dq, dk, dv, delta, qs, BH, S,
+                         dh, causal, win, scale, softcap, st);
 }

@@ -104,9 +104,13 @@ _SIGNATURES = {
     # flash_attention.cu — q, k, v, o, lse (or null), BH, S, dh, is_bf16,
     # causal, window (0: none), scale, softcap, stream
     "repro_flash_attention": [P] * 5 + [I] * 6 + [F] * 2 + [P],
+    # dh, is_bf16 -> 1 where the launch runs on the tensor cores
+    "repro_flash_route": [I, I],
     # flash_attention_bwd.cu — q, k, v, o, lse, do, dq, dk, dv, delta
-    # (scratch), BH, S, dh, is_bf16, causal, window, scale, softcap, stream
-    "repro_flash_attention_bwd": [P] * 10 + [I] * 6 + [F] * 2 + [P],
+    # (scratch), qs (scratch, or null off the tensor cores), BH, S, dh,
+    # is_bf16, causal, window, scale, softcap, stream
+    "repro_flash_attention_bwd": [P] * 11 + [I] * 6 + [F] * 2 + [P],
+    "repro_flash_bwd_route": [I, I],
     # graph_cond.cu — the conditional nodes of core/device_loop.py:
     # stream, handle out
     "repro_cond_handle": [P, P],

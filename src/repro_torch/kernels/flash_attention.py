@@ -15,9 +15,10 @@ does (``repro/models/layers.py:flash_attention``, local attention): with
 after the softcap.  A window needs ``causal=True``.
 
 On a CUDA tensor it launches the hand-written kernel
-(``csrc/flash_attention.cu``: bf16 with dh 64 or 128 on the tensor cores
-through a TMA ring and ``wgmma``, 128 q rows by 128-key tiles; every
-other case on the CUDA cores) or raises; only a tensor on the CPU takes
+(``csrc/flash_attention.cu``: bf16 with dh 64, 128 or 256 on the tensor
+cores through a TMA ring and ``wgmma``, 128 q rows by 128-key tiles, 64-key
+at dh 256; every other case on the CUDA cores) or raises; only a tensor
+on the CPU takes
 the plain version, ``flash_attention_plain``: the same blockwise online
 softmax in PyTorch, with the same float32 state and cast points, over KV
 blocks of ``bk`` keys (the Pallas default, 512).  ``LAUNCHES`` counts
@@ -37,8 +38,9 @@ entries 0):
     dK_j  = sum_i round(dS_ij) qs_i           (qs: q * scale in q's type)
     dQ_i  = scale * sum_j round(dS_ij) k_j
 with round() to q's type (a no-op in float32).  On a CUDA tensor it
-launches ``csrc/flash_attention_bwd.cu`` (three kernels in one call: D,
-then dK/dV over each KV tile, then dQ over each q tile; no atomics, so
+launches ``csrc/flash_attention_bwd.cu`` (in one call: D, then dK/dV over
+each KV tile, then dQ over each q tile; bf16 with dh 64 or 128 on the
+tensor cores, first writing q * scale into a scratch copy; no atomics, so
 two calls on the same inputs agree bit for bit) or raises; a CPU tensor
 takes ``flash_attention_backward_plain``, the same math blockwise over
 keys.  ``BWD_LAUNCHES`` counts its calls.  ``FlashAttention`` is the
@@ -58,12 +60,20 @@ BK = 512
 LAUNCHES = _build.launch_table(__name__, "flash_attention")
 BWD_LAUNCHES = _build.launch_table(__name__ + ".backward",
                                    "flash_attention_backward")
+# launches by route, as the library dispatches them: {kernel: {route: n}}
+# (not a launch table: the same launches, counted once more by route)
+ROUTES = {name: {"tensor_cores": 0, "cuda_cores": 0}
+          for name in ("flash_attention", "flash_attention_backward")}
 
 
 def reset_launches() -> None:
-    for table in (LAUNCHES, BWD_LAUNCHES):
+    for table in (LAUNCHES, BWD_LAUNCHES, *ROUTES.values()):
         for k in table:
             table[k] = 0
+
+
+def _route(fn, dh: int, bf16: bool) -> str:
+    return "tensor_cores" if fn(dh, int(bf16)) else "cuda_cores"
 
 
 def rounded(value: float, dtype: torch.dtype) -> float:
@@ -175,12 +185,14 @@ def flash_attention(q, k, v, *, causal=True, softcap=None, window=None,
     if q.numel() == 0:
         return (o, lse) if return_lse else o
     scale = rounded(dh ** -0.5, q.dtype)
-    err = _build.load().repro_flash_attention(
+    lib, bf16 = _build.load(), q.dtype == torch.bfloat16
+    err = lib.repro_flash_attention(
         ptr(q), ptr(k), ptr(v), ptr(o), None if lse is None else ptr(lse),
-        BH, S, dh, int(q.dtype == torch.bfloat16), int(causal),
-        min(window or 0, S), scale, float(softcap or 0.0), _stream(dev))
+        BH, S, dh, int(bf16), int(causal), min(window or 0, S), scale,
+        float(softcap or 0.0), _stream(dev))
     raise_on(err, name)
     LAUNCHES[name] += 1
+    ROUTES[name][_route(lib.repro_flash_route, dh, bf16)] += 1
     return (o, lse) if return_lse else o
 
 
@@ -248,14 +260,18 @@ def flash_attention_backward(q, k, v, o, lse, do, *, causal=True,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
+    lib, bf16 = _build.load(), q.dtype == torch.bfloat16
+    route = _route(lib.repro_flash_bwd_route, dh, bf16)
     delta = torch.empty((BH, S), dtype=torch.float32, device=dev)
-    err = _build.load().repro_flash_attention_bwd(
+    qs = torch.empty_like(q) if route == "tensor_cores" else None
+    err = lib.repro_flash_attention_bwd(
         ptr(q), ptr(k), ptr(v), ptr(o), ptr(lse), ptr(do), ptr(dq), ptr(dk),
-        ptr(dv), ptr(delta), BH, S, dh, int(q.dtype == torch.bfloat16),
-        int(causal), min(window or 0, S), rounded(dh ** -0.5, q.dtype),
-        float(softcap or 0.0), _stream(dev))
+        ptr(dv), ptr(delta), None if qs is None else ptr(qs), BH, S, dh,
+        int(bf16), int(causal), min(window or 0, S),
+        rounded(dh ** -0.5, q.dtype), float(softcap or 0.0), _stream(dev))
     raise_on(err, name)
     BWD_LAUNCHES[name] += 1
+    ROUTES[name][route] += 1
     return dq, dk, dv
 
 

@@ -576,23 +576,36 @@ def bf16_close(got, q, k, v, causal, cap, window=None):
     assert float(d.norm()) <= 1e-2 * float(w.norm())
 
 
+def on_tensor_cores(name, fn):
+    """fn() with one launch of ``name``, which the library ran on the
+    tensor cores by its own route count."""
+    before = dict(TF.ROUTES[name])
+    out = launched(TF.LAUNCHES if name == "flash_attention"
+                   else TF.BWD_LAUNCHES, name, fn)
+    assert TF.ROUTES[name] == {**before, "tensor_cores":
+                               before["tensor_cores"] + 1}, TF.ROUTES[name]
+    return out
+
+
 @pytest.mark.parametrize("dh,S,causal,cap", [
-    (dh, S, causal, None) for dh in (64, 128) for S in (1, 100, 129, 2048)
-    for causal in (True, False)] + [(128, 100, True, 30.0),
-                                    (128, 2048, True, 30.0),
-                                    (128, 129, False, 30.0)])
+    (dh, S, causal, None) for dh in (64, 128, 256)
+    for S in (1, 100, 129, 2048) for causal in (True, False)] + [
+    (128, 100, True, 30.0), (128, 2048, True, 30.0), (128, 129, False, 30.0),
+    (256, 65, True, 50.0), (256, 2048, True, 50.0), (256, 129, False, 50.0)])
 def test_flash_tensor_core_kernel_matches_plain(dev, dh, S, causal, cap):
-    """The wgmma kernel (bf16, dh 64 or 128) at a single row, under one
-    tile, one key past a tile and 16 tiles, against its plain version."""
+    """The wgmma kernel (bf16, dh 64, 128 or 256) at a single row, under
+    one tile, one key past a tile (of 128 keys, 64 at dh 256) and 16 or 32
+    tiles, against its plain version; the library reports the launch on
+    the tensor cores."""
     rng = np.random.default_rng(S * dh + causal)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, S, dh)).astype(
         np.float32)).to(dev, torch.bfloat16) for _ in range(3))
-    got = launched(TF.LAUNCHES, "flash_attention", lambda: TF.flash_attention(
+    got = on_tensor_cores("flash_attention", lambda: TF.flash_attention(
         q, k, v, causal=causal, softcap=cap))
     bf16_close(got, q, k, v, causal, cap)
 
 
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 def test_flash_kernel_keeps_heads_apart(dev, dh):
     """Head 1's k and v are NaN: heads 0 and 2 (S = 200, so their last
     KV tile runs past S) must not read them and equal the plain version."""
@@ -609,14 +622,15 @@ def test_flash_kernel_keeps_heads_apart(dev, dh):
         bf16_close(got[keep], q[keep], k[keep], v[keep], causal, None)
 
 
-# the window on both kernels: the tensor cores (bf16, dh 64 and 128) and
-# the CUDA cores (bf16 dh 256, gemma2's width, and float32).  S = 300 and
-# 1,000 are ragged; at S = 640 a window of 128 leaves the last row of each
-# 128-row q tile past the first its whole first KV tile masked, and on
-# the CUDA cores (16-row tiles of 32 keys) a window of 127 does the same;
-# windows of 200 and 300 give a q tile a second lower-edge KV tile below
-# its diagonal one (the masked tiles inside the tensor-core kernel's
-# loop).
+# the window on both kernels: the tensor cores (bf16, dh 64 and 128 with
+# 128-key tiles, 256 with 64-key ones: gemma2's width) and the CUDA cores
+# (float32).  S = 300 and 1,000 are ragged; at S = 640 a window of 128
+# leaves the last row of each 128-row q tile past the first its whole
+# first KV tile masked, windows of 63 and 64 do the same for dh 256's
+# 64-key tiles (rows 190-255 / 191-255 of the q tile from row 128), and on
+# the CUDA cores (16-row tiles of 32 keys) a window of 127 does; windows
+# of 200 and 300 give a q tile a second lower-edge KV tile below its
+# diagonal one (the masked tiles inside the tensor-core kernel's loop).
 WINDOW_PATHS = [(torch.bfloat16, 64), (torch.bfloat16, 128),
                 (torch.bfloat16, 256), (torch.float32, 128)]
 
@@ -626,7 +640,7 @@ WINDOW_PATHS = [(torch.bfloat16, 64), (torch.bfloat16, 128),
     (300, 1, None), (300, 127, None), (300, 128, None), (300, 129, None),
     (300, 300, None), (300, 5000, None), (640, 128, None),
     (640, 127, 30.0), (640, 256, 50.0), (640, 200, None),
-    (1000, 300, 50.0)])
+    (1000, 300, 50.0), (640, 63, None), (640, 64, 50.0)])
 def test_flash_window_matches_plain(dev, dtype, dh, S, window, cap):
     rng = np.random.default_rng(S * window + dh)
     q, k, v = (torch.from_numpy(rng.standard_normal((2, S, dh)).astype(
@@ -721,11 +735,14 @@ def test_flash_backward_matches_plain(dev, dtype, dh, S, causal, window, cap):
                                       (torch.bfloat16, 256),
                                       (torch.float32, 64)])
 def test_flash_backward_is_deterministic(dev, dtype, dh):
-    """Two launches on the same inputs agree bit for bit (no atomics)."""
+    """Two launches on the same inputs agree bit for bit (no atomics); at
+    bf16 dh 64 and 128 both ran on the tensor-core kernels."""
     kw = dict(causal=True, softcap=None, window=None)
     case = bwd_case(dev, 3, 600, dh, dtype, dh, **kw)
-    a = TF.flash_attention_backward(*case, **kw)
-    b = TF.flash_attention_backward(*case, **kw)
+    run = (lambda fn: on_tensor_cores("flash_attention_backward", fn)) \
+        if dtype == torch.bfloat16 and dh in (64, 128) else (lambda fn: fn())
+    a = run(lambda: TF.flash_attention_backward(*case, **kw))
+    b = run(lambda: TF.flash_attention_backward(*case, **kw))
     torch.cuda.synchronize()
     for x, y in zip(a, b):
         assert torch.equal(x, y)

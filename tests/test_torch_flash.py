@@ -161,10 +161,11 @@ def test_flash_window_refused_without_causal_or_positive_int():
                 fn(q, k, v, window=bad)
 
 
-# tools/flash_variants.py against the flash kernel's source as it stands:
-# every planted fault and design copy must match it once and change it,
-# so a tool left behind by a change to the kernel fails here, not on the
-# card.
+# tools/flash_variants.py against the flash kernels' sources as they
+# stand (the forward's tables on flash_attention.cu, the backward's on
+# flash_attention_bwd.cu, each with the headers they include): every
+# planted fault and design copy must match once and change a file, so a
+# tool left behind by a change to a kernel fails here, not on the card.
 def _flash_variants():
     import importlib.util
     import pathlib
@@ -173,20 +174,24 @@ def _flash_variants():
         "flash_variants", root / "tools" / "flash_variants.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod, (root / "src" / "repro_torch" / "csrc" /
-                 "flash_attention.cu").read_text()
+    return mod
 
 
-FV, FLASH_CU = _flash_variants()
+FV = _flash_variants()
 
 
-@pytest.mark.parametrize("table,name", [
-    *((FV.FAULTS, name) for name in FV.FAULTS),
-    *((FV.ABLATIONS, name) for name in FV.ABLATIONS)])
-def test_flash_variant_applies_to_the_current_source(table, name):
+@pytest.mark.parametrize("mode,name", [
+    (mode, name) for mode in ("faults", "ablations")
+    for name in FV.TABLES[mode][1]] + [
+    (mode, name) for mode in ("faults-bwd", "ablations-bwd")
+    for name in FV.TABLES[mode][1]])
+def test_flash_variant_applies_to_the_current_source(mode, name):
+    source, table = FV.TABLES[mode]
     subs = table[name]
-    copy = FV.planted(FLASH_CU, subs)
-    assert (copy != FLASH_CU) == bool(subs)
+    copy, original = FV.variant(source, subs), FV.variant(source, [])
+    assert copy.keys() == original.keys()
+    changed = {f for f in copy if copy[f] != original[f]}
+    assert changed == {s[0] if len(s) == 3 else source for s in subs}
 
 
 # ---------------------------------------------------------------------------
