@@ -259,6 +259,25 @@ Phases (any failure exits non-zero):
       bit-identical to an uninterrupted run's; ``--elastic --fail-at 3``
       restarts and reaches step 5.
 
+7. Counts (``repro_torch.launch.op_cost``), after 6.
+   b. PERF.md §6's ``bound_ms`` of rows 1-7e: each kernel entry's rule on
+      meta tensors of the row's shape (``PERF_BOUNDS``) equals the stated
+      bound to its printed digits.
+   a. starcoder2-7b's phase-5 prefill (4 x 2,048), a decode step after
+      it and 6a's train step (8 layers, 4 x 2,048), each counted with
+      real tensors on the card and again on the meta device: identical
+      FLOPs and bytes; each step's counted FLOPs over its warm time as a
+      share of 989.4 TFLOP/s (bf16), beside the card's name and power
+      limit.
+   d. The counted argument bytes of that prefill (parameters, prompts)
+      and of the train step (parameters, AdamW state, batch) within 1% of
+      the growth of ``memory_allocated`` while building them; the
+      counter's peak estimate beside ``max_memory_allocated``.
+   c. SSSP on 2a's graph and stream through ``CudaEngine(autotune=
+      True)``: each row block that divides R timed on synthetic slots
+      (``repair_config(measure=True)``), the fastest kept; ``dist`` and
+      ``parent`` equal to 2a's bit for bit.
+
 The last two lines are the kernels' JSON record and the device record.
 """
 from __future__ import annotations
@@ -3620,6 +3639,273 @@ def dist_phase(torch, np, repro_torch, counts, csr, stream, paths,
     log(f"[2h] distributed backends {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 7: counts ----------------------------------------------------------
+# PERF.md §6's bound_ms of each row at its shape, the counter's rule
+# recorded by the kernel's entry on meta tensors (7b; tests/test_torch_cost
+# holds the same table on the CPU): the row kernels at scale 22's ELL pack
+# (R 12,431,232, K 8, n 4,194,304, rows of 128), the merges at 2's and
+# PR 19's batched shapes, the flash rows at their (BH, S, dh) in bf16
+ROW_SHAPE = (12_431_232, 8, 4_194_304, 128)
+PERF_BOUNDS = [  # row, kernel, its shape, PERF.md §6's bound_ms
+    ("1", "fused_relax_rows", {}, "0.2871"),
+    ("2", "merge_pool_sorted", dict(D=652_422, B=65_536), "0.0053"),
+    ("2 batched S 32", "merge_pool_sorted_batched",
+     dict(S=32, D=16_384, B=2_048), "0.0043"),
+    ("2 batched S 24", "merge_pool_sorted_batched",
+     dict(S=24, D=16_384, B=2_048), "0.0032"),
+    ("3", "fused_spmv_rows", {}, "0.1684"),
+    ("4", "relax_rowmin", {}, "0.2573"),
+    ("5", "spmv_rowsum", {}, "0.1386"),
+    ("6", "relax_rowargmin", {}, "0.2722"),
+    ("7", "flash_attention", dict(BH=144, S=2048, dh=128), "0.1564"),
+    ("7a", "flash_attention", dict(BH=32, S=7168, dh=256), "0.8510"),
+    ("7b", "flash_attention", dict(BH=32, S=7168, dh=256, window=4096),
+     "0.6946"),
+    ("7c", "flash_attention", dict(BH=80, S=1500, dh=64, causal=False),
+     "0.0466"),
+    ("7d", "flash_attention", dict(BH=128, S=2048, dh=128), "0.1390"),
+    ("7e", "flash_attention_backward", dict(BH=144, S=2048, dh=128),
+     "0.3909"),
+]
+
+
+def perf_bounds(torch, FK, CK, FA) -> list:
+    """[(row, kernel, the counter's bound_ms, PERF.md's)], each bound
+    printed to PERF.md's digits: one call of the row's kernel entry on
+    meta tensors of the row's shape, under a ``CostCounter``."""
+    from repro_torch.launch.op_cost import CostCounter, bound_s
+    i32, f32, bf16 = torch.int32, torch.float32, torch.bfloat16
+
+    def e(*shape, dtype=i32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    R, K, n, bt = ROW_SHAPE
+    src, w, vals, r2d, fvals = e(R, K), e(R, K), e(n + 1), e(R), \
+        e(n + 1, dtype=f32)
+
+    def merge(kernel, D, B, S=None):
+        lead = () if S is None else (S,)
+        pool = [e(*lead, D) for _ in range(3)] + [e(*lead, D,
+                                                    dtype=torch.bool)]
+        batch = [e(*lead, B) for _ in range(3)] + [e(*lead, B,
+                                                     dtype=torch.bool)]
+        return lambda: getattr(FK, kernel)(*pool, *batch, n=n)
+
+    def flash(kernel, BH, S, dh, causal=True, window=None):
+        q, k, v, o, do = (e(BH, S, dh, dtype=bf16) for _ in range(5))
+        kw = dict(causal=causal, window=window)
+        if kernel == "flash_attention":
+            return lambda: FA.flash_attention(q, k, v, **kw)
+        lse = e(BH, S, dtype=f32)
+        return lambda: FA.flash_attention_backward(q, k, v, o, lse, do, **kw)
+
+    calls = {
+        "fused_relax_rows": lambda: FK.fused_relax_rows(src, w, vals,
+                                                        block=bt),
+        "fused_spmv_rows": lambda: FK.fused_spmv_rows(src, r2d, fvals,
+                                                      block=bt),
+        "relax_rowmin": lambda: CK.relax_rowmin(src, w, vals),
+        "spmv_rowsum": lambda: CK.spmv_rowsum(src, fvals),
+        "relax_rowargmin": lambda: CK.relax_rowargmin(src, w, vals, r2d,
+                                                      n=n),
+    }
+    out = []
+    for row, kernel, shape, want in PERF_BOUNDS:
+        if kernel.startswith("merge"):
+            call = merge(kernel, **shape)
+        elif kernel.startswith("flash"):
+            call = flash(kernel, **shape)
+        else:
+            call = calls[kernel]
+        with CostCounter() as c:
+            call()
+        rec = c.cost_record()
+        if list(rec["by_kernel"]) != [kernel]:
+            raise AssertionError(f"row {row}: the counter saw "
+                                 f"{list(rec['by_kernel'])}, not {kernel}")
+        digits = len(want.split(".")[1])
+        out.append((row, kernel, f"{bound_s(rec) * 1e3:.{digits}f}", want))
+    return out
+
+
+# 7a's peak rate: the counted FLOPs of a bf16 step over its time over the
+# H100 SXM's dense bf16 tensor-core peak (op_cost.PEAK_FLOPS)
+ARG_BYTES_RTOL = 0.01     # 7d: counted argument bytes vs allocator growth
+
+
+def counted_step(torch, fn):
+    """``fn()`` under a ``CostCounter``: (its result, its record)."""
+    from repro_torch.launch.op_cost import CostCounter
+    with CostCounter() as c:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, c.cost_record()
+
+
+def same_counts(tag: str, got: dict, meta: dict) -> None:
+    """The card's record and the meta twin's: identical FLOPs and bytes."""
+    keys = ("flops_per_device", "bytes_per_device", "flops_by_op")
+    diff = {k: (got[k], meta[k]) for k in keys if got[k] != meta[k]}
+    if diff:
+        raise AssertionError(f"[7a] {tag}: cuda and meta counts differ: "
+                             f"{diff}")
+
+
+def share_line(tag: str, rec: dict, seconds: float, peak: str) -> str:
+    from repro_torch.launch.op_cost import PEAK_FLOPS, bound_s
+    f = rec["flops_per_device"]
+    return (f"[7a] {tag}: {f:,} FLOPs ({rec['flops_by_dtype']}), "
+            f"{rec['bytes_per_device']:,} bytes counted (cuda = meta) | "
+            f"{seconds * 1e3:.3f} ms warm | {f / seconds / 1e12:.1f} TFLOP/s"
+            f" = {f / seconds / PEAK_FLOPS['bfloat16']:.4f} of 989.4 TFLOP/s"
+            f" bf16 | bound {bound_s(rec) * 1e3:.3f} ms "
+            f"({bound_s(rec) / seconds:.4f} of the time) | {peak}")
+
+
+def arg_bytes_check(torch, tag: str, counted: int, grown: int) -> str:
+    rel = abs(grown - counted) / counted
+    if rel > ARG_BYTES_RTOL:
+        raise AssertionError(f"[7d] {tag}: argument bytes {counted:,} "
+                             f"counted, the allocator grew {grown:,} "
+                             f"({rel:.3%}, limit {ARG_BYTES_RTOL:.0%})")
+    return (f"[7d] {tag}: argument bytes {counted:,} counted, "
+            f"memory_allocated grew {grown:,} while building them "
+            f"({rel:.4%})")
+
+
+def counts_phase(torch, counts, FA, FK, CK, graph) -> None:
+    """Phase 7: the op counter on the card.  (b) PERF.md §6's bounds by
+    the kernels' rules; (a) starcoder2's phase-5 prefill, a decode step
+    and phase 6a's train step counted on the card and on meta (identical
+    FLOPs and bytes), each over its warm time as a share of the bf16
+    peak; (d) their argument bytes against the allocator's growth and the
+    counter's peak estimate beside ``max_memory_allocated``; (c) SSSP on
+    ``CudaEngine(autotune=True)`` at 2a's scale, each row block timed,
+    ``dist`` and ``parent`` equal to 2a's."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticSource
+    from repro_torch.launch import serve
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.launch.op_cost import nbytes
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    import repro_torch
+    from repro_torch.algos import sssp
+    t_phase = time.perf_counter()
+    meta = torch.device("meta")
+    smi = nvidia_smi()
+
+    # (b)
+    for row, kernel, got, want in perf_bounds(torch, FK, CK, FA):
+        log(f"[7b] row {row} {kernel}: bound {got} ms by the counter's "
+            f"rule | PERF.md §6 {want} ms")
+        if got != want:
+            raise AssertionError(f"[7b] row {row}: the counter's bound {got}"
+                                 f" ms, PERF.md §6 states {want}")
+
+    # (a) + (d): serving
+    B, P, G = LM_BATCH, LM_PROMPT, LM_GEN
+    torch.cuda.empty_cache()
+    mem0 = torch.cuda.memory_allocated()
+    model, prompts = build_lm(torch, LM_ARCH, B, P, G)
+    args_b = tree_bytes(list(model.parameters())) + nbytes(prompts)
+    log(arg_bytes_check(torch, "starcoder2-7b prefill", args_b,
+                        torch.cuda.memory_allocated() - mem0))
+    serve.prefill(model, prompts, P + G)                     # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (logits, caches), pre = counted_step(
+        torch, lambda: serve.prefill(model, prompts, P + G))
+    peak = (f"peak estimate {(args_b + pre['peak_live_bytes']) / 2**30:.3f}"
+            f" GiB vs max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    with Timer(torch) as t_pre:
+        serve.prefill(model, prompts, P + G)
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    dec = counted_step(torch, lambda: model.serve_step(caches, tok, P))[1]
+    with Timer(torch) as t_dec:
+        model.serve_step(caches, tok, P + 1)
+    cfg = model.cfg
+    del model, caches, logits, prompts
+    torch.cuda.empty_cache()
+    twin = Model(cfg, device=meta)
+    twin.params = T.init_params(cfg, twin.dtype, meta)
+    m_prompts = torch.empty((B, P), dtype=torch.int64, device=meta)
+    (m_logits, m_caches), m_pre = counted_step(
+        torch, lambda: serve.prefill(twin, m_prompts, P + G))
+    m_tok = torch.argmax(m_logits, dim=-1)[:, None]
+    m_dec = counted_step(
+        torch, lambda: twin.serve_step(m_caches, m_tok, P))[1]
+    same_counts("prefill", pre, m_pre)
+    same_counts("decode", dec, m_dec)
+    del twin, m_caches, m_logits
+    log(f"[7a] {smi}")
+    log(share_line(f"starcoder2-7b prefill {B} x {P}", pre, t_pre.s, peak))
+    log(share_line(f"starcoder2-7b decode step at {P}", dec, t_dec.s,
+                   "host-bound"))
+
+    # (a) + (d): phase 6a's train step
+    mem0 = torch.cuda.memory_allocated()
+    cfg, model = train_model(torch, TRAIN_LAYERS)
+    opt = model.init_opt()
+    data = SyntheticSource(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH, seed=0))
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in data.batch(0).items()}
+    args_b = tree_bytes(list(model.parameters())) + tree_bytes(opt) + \
+        tree_bytes(batch)
+    log(arg_bytes_check(torch, f"train step ({TRAIN_LAYERS} layers)",
+                        args_b, torch.cuda.memory_allocated() - mem0))
+    opt, _ = model.train_step(opt, 0, batch)                  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (opt, _), trn = counted_step(
+        torch, lambda: model.train_step(opt, 1, batch))
+    peak = (f"peak estimate {(args_b + trn['peak_live_bytes']) / 2**30:.3f}"
+            f" GiB vs max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    with Timer(torch) as t_trn:
+        opt, _ = model.train_step(opt, 2, batch)
+    del model, opt
+    torch.cuda.empty_cache()
+    twin = Model(cfg, device=meta, lr=TRAIN_LR)
+    twin.params = T.init_params(cfg, twin.dtype, meta)
+    m_batch = {k: torch.empty(v.shape, dtype=v.dtype, device=meta)
+               for k, v in batch.items()}
+    m_opt = twin.init_opt()
+    m_trn = counted_step(
+        torch, lambda: twin.train_step(m_opt, 1, m_batch))[1]
+    same_counts("train", trn, m_trn)
+    del twin, batch
+    log(share_line(f"train step {TRAIN_LAYERS} layers {TRAIN_BATCH} x "
+                   f"{TRAIN_SEQ}", trn, t_trn.s, peak))
+
+    # (c): the measured row block on 2a's graph and stream
+    csr_host, stream, want = graph
+    csr = csr_host.to(DEV)
+    FK.clear_tune_cache()
+    counts.reset()
+    with Timer(torch) as t_sssp:
+        sess = repro_torch.bind_graph(csr, backend="cuda",
+                                      capacity=2 * stream.num_adds,
+                                      device=DEV, autotune=True)
+        props = sess.run_stream(stream, BATCH, sssp.stream_step,
+                                sess.call(sssp.static_sssp, 0))
+    launched = counts.read()
+    for k in ("dist", "parent"):
+        if not torch.equal(props[k].cpu(), want[k]):
+            raise AssertionError(f"[7c] autotuned SSSP differs from 2a in "
+                                 f"{k}")
+    cfg_t = sess.engine._config(sess.handle.g)
+    log(f"[7c] SSSP on CudaEngine(autotune=True): {t_sssp.s:.3f} s with the "
+        f"tuning, row block {cfg_t.row_block}; candidates (ms, best of 3, "
+        f"CUDA events): {FK.TUNE_TIMES}; {launched['fused_relax_rows']} "
+        f"fused_relax_rows launches; dist and parent equal 2a's")
+    if not FK.TUNE_TIMES or sess.handle.ell.R % cfg_t.row_block:
+        raise AssertionError(f"[7c] no measured row block dividing R: "
+                             f"{FK.TUNE_TIMES}, {cfg_t}")
+    del sess, props, csr
+    torch.cuda.empty_cache()
+    log(f"[7] counts {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=int, default=22)
@@ -3999,6 +4285,9 @@ def main(argv=None) -> int:
     mark("distributed backends")
 
     # -- 5. LM serving -------------------------------------------------------
+    # 7c runs SSSP on 2a's graph and stream again: kept on the host
+    graph = (csr.to("cpu"), stream,
+             {k: v.cpu() for k, v in sssp_cuda.items()})
     del csr, stream, post, sssp_cuda, pr_cuda, g
     torch.cuda.empty_cache()
     kernels.append(lm_phase(torch, args, counts, FA))
@@ -4019,6 +4308,11 @@ def main(argv=None) -> int:
     mark("training")
     reduced_train_phase(torch, counts, FA)
     mark("reduced training: resume, elastic")
+
+    # -- 7. counts -----------------------------------------------------------
+    counts_phase(torch, counts, FA, FK, CK, graph)
+    del graph
+    mark("counts")
     log(f"[check] whole smoke {stamps[-1][1] - stamps[0][1]:.1f} s")
     log("[time] " + " | ".join(f"{b[0]} {b[1] - a[1]:.1f} s"
                                for a, b in zip(stamps, stamps[1:])))

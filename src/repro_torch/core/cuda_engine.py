@@ -65,15 +65,18 @@ class StagedAdd:
 class CudaEngine(TorchEngine):
     name = "cuda"
 
-    def __init__(self, k: int = 8, fused: bool = True, device=None):
+    def __init__(self, k: int = 8, fused: bool = True, device=None,
+                 autotune: bool = False):
         super().__init__(device)
         self.k = k
         self.fused = fused
+        self.autotune = autotune     # measure the row blocks vs. heuristic
         self._repack = functools.partial(pack_ell, k=k)
 
     def _config(self, g: DynGraph) -> FK.RepairConfig:
         return FK.repair_config(g.n, g.main_capacity + g.diff_capacity,
-                                self.k)
+                                self.k, measure=self.autotune,
+                                device=self.device)
 
     def _handle(self, g: DynGraph) -> CudaHandle:
         return CudaHandle(g=g, ell=pack_ell(g, self.k))

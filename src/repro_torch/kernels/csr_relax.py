@@ -18,6 +18,10 @@ warp.
 ``LAUNCHES`` counts kernel launches, and only those.  They are the
 ``cuda_chained`` engine's sweep; the ``cuda`` engine runs the fused
 kernels of ``kernels/repair.py`` instead.
+
+Cost rules (``launch/op_cost.counted``; on meta tensors an entry returns
+an empty (R,) output): no FLOPs; bytes every input read once (``vals``
+(n+1) once, not per gather) and the (R,) output written once.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import check, cuda_device, ptr, raise_on
 from repro_torch.kernels._build import stream as _stream
 from repro_torch.kernels.repair import row_sum_plain
+from repro_torch.launch.op_cost import counted, nbytes
 from repro_torch.tensors import take
 
 LAUNCHES = _build.launch_table(__name__, "relax_rowmin", "spmv_rowsum",
@@ -74,6 +79,19 @@ def relax_rowargmin_plain(ell_src, ell_w, vals, row_targets, n: int):
     return torch.where(achieved, ell_src, n).min(dim=1).values
 
 
+def _row_rule(dtype):
+    """The chained kernels' cost rule and meta outputs: every input read
+    once, one (R,) output of ``dtype`` written."""
+    def cost(ell_src, *ins, n=None):
+        return 0, nbytes(ell_src, *ins) + 4 * ell_src.shape[0], dtype
+
+    def meta(ell_src, *ins, n=None):
+        return torch.empty((ell_src.shape[0],), dtype=dtype,
+                           device=ell_src.device)
+    return cost, meta
+
+
+@counted("relax_rowmin", *_row_rule(INT))
 def relax_rowmin(ell_src, ell_w, vals):
     """vals: (n+1,) int32 with the identity (INF_W) at slot n."""
     if vals.device.type == "cpu":
@@ -93,6 +111,7 @@ def relax_rowmin(ell_src, ell_w, vals):
     return out
 
 
+@counted("spmv_rowsum", *_row_rule(torch.float32))
 def spmv_rowsum(ell_src, vals):
     """vals: (n+1,) float32 with 0.0 at slot n."""
     if vals.device.type == "cpu":
@@ -109,6 +128,7 @@ def spmv_rowsum(ell_src, vals):
     return out
 
 
+@counted("relax_rowargmin", *_row_rule(INT))
 def relax_rowargmin(ell_src, ell_w, vals, row_targets, *, n: int):
     """row_targets: (R,) the already-combined per-row target value."""
     if vals.device.type == "cpu":

@@ -46,6 +46,15 @@ takes ``flash_attention_backward_plain``, the same math blockwise over
 keys.  ``BWD_LAUNCHES`` counts its calls.  ``FlashAttention`` is the
 ``torch.autograd.Function`` over the two: its forward saves q, k, v, o
 and lse.
+
+Cost rules (``launch/op_cost.counted``; on meta tensors an entry returns
+empty outputs of the right shapes): the function's work, not the
+kernel's tiling.  The forward does 4 · dh · BH · pairs FLOPs in q's type,
+``pairs`` the unmasked (i, j) pairs (``pairs``: S(S+1)/2 causal, the band
+with a window, S^2 without a mask); the backward 5 · 2 · dh · BH · pairs
+(five products).  Bytes: every input read once, every output written
+once (the forward q, k, v, o and with ``return_lse`` the lse; the
+backward q, k, v, o, lse, do, dq, dk, dv).
 """
 from __future__ import annotations
 
@@ -54,6 +63,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import cuda_device, ptr, raise_on
 from repro_torch.kernels._build import stream as _stream
+from repro_torch.launch.op_cost import counted, nbytes
 
 NEG = -1e30
 BK = 512
@@ -168,6 +178,31 @@ def _check_inputs(name, q, k, v, softcap):
     return dev
 
 
+def pairs(S: int, causal: bool, window=None) -> int:
+    """The (i, j) pairs of S rows and S keys that no mask removes."""
+    if not causal:
+        return S * S
+    W = S if window is None else min(window, S)
+    return W * (W + 1) // 2 + (S - W) * W
+
+
+def _fwd_cost(q, k, v, *, causal=True, softcap=None, window=None,
+              return_lse=False):
+    BH, S, dh = q.shape
+    lse = 4 * BH * S if return_lse else 0
+    return (4 * dh * BH * pairs(S, causal, window),
+            nbytes(q, k, v, q) + lse, q.dtype)
+
+
+def _fwd_meta(q, k, v, *, causal=True, softcap=None, window=None,
+              return_lse=False):
+    o = torch.empty_like(q)
+    if not return_lse:
+        return o
+    return o, torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+
+
+@counted("flash_attention", _fwd_cost, _fwd_meta)
 def flash_attention(q, k, v, *, causal=True, softcap=None, window=None,
                     return_lse=False):
     """(BH, S, dh) attention forward in q's type, and with ``return_lse``
@@ -236,6 +271,19 @@ def _p_ds(qs, kb, vb, dof, lse, delta, softcap, ok):
     return p, ds
 
 
+def _bwd_cost(q, k, v, o, lse, do, *, causal=True, softcap=None,
+              window=None):
+    BH, S, dh = q.shape
+    return (5 * 2 * dh * BH * pairs(S, causal, window),
+            nbytes(q, k, v, o, lse, do, q, k, v), q.dtype)
+
+
+def _bwd_meta(q, k, v, o, lse, do, *, causal=True, softcap=None,
+              window=None):
+    return tuple(torch.empty_like(t) for t in (q, k, v))
+
+
+@counted("flash_attention_backward", _bwd_cost, _bwd_meta)
 def flash_attention_backward(q, k, v, o, lse, do, *, causal=True,
                              softcap=None, window=None):
     """(dq, dk, dv) of the forward at q, k, v given its output ``o``, its

@@ -32,15 +32,26 @@ CUDA tensor it launches the kernel in ``csrc/repair.cu`` (built on first
 use by ``_build``) or raises.  ``LAUNCHES`` counts kernel launches, and
 only those.
 
+Cost rules (``launch/op_cost.counted``: what each entry records into an
+active ``CostCounter``; on meta tensors an entry returns empty outputs):
+no FLOPs (no matrix product); bytes the slots, ``vals`` (n+1) read once
+(the gathers' re-reads are the tiling's, not the function's), the other
+inputs, and the outputs written once: ``fused_relax_rows`` src, w, vals,
+row_min, row_arg, rows and counts; ``fused_spmv_rows`` src, row2dst,
+vals, row_sum, rows and counts; the merges every pool and batch array
+read and the merged pool written.
+
 ``repair_config`` keeps the reference's row-block heuristic keyed on
-(n, E_cap, K).  The merge kernel has no block knob: its tile is a
-constant of ``csrc/repair.cu`` (``kMergeTile``, repeated here as
-``MERGE_TILE``).
+(n, E_cap, K), or with ``measure=True`` times the row candidates that
+divide R and keeps the fastest.  The merge kernel has no block knob (its
+tile is a constant of ``csrc/repair.cu``, ``kMergeTile``, repeated here
+as ``MERGE_TILE``), so ``RepairConfig`` holds the row block alone.
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
+import threading
+import time
 from typing import Tuple
 
 import torch
@@ -50,7 +61,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels._build import check, cuda_device, ptr, raise_on
 from repro_torch.kernels._build import stream as _stream
 from repro_torch.kernels.ell import ell_capacity
-from repro_torch.tensors import take
+from repro_torch.launch.op_cost import counted, nbytes
+from repro_torch.tensors import resolve_device, take
 
 ROW_TILE = 128          # ELL row rounding; a block size that always divides R
 DEFAULT_BLOCK = 256     # rows per CUDA block of fused_relax_rows
@@ -116,6 +128,25 @@ def fused_relax_rows_plain(ell_src, ell_w, vals, block: int):
     return rmin, rarg, rows, counts
 
 
+def _rows_out(R: int, block: int, *dtypes, device):
+    """Empty (R,) outputs of ``dtypes`` and the (R // bt,) counts."""
+    return (*(torch.empty((R,), dtype=dt, device=device) for dt in dtypes),
+            torch.empty((R // _relax_block(R, block),), dtype=INT,
+                        device=device))
+
+
+def _relax_rows_cost(ell_src, ell_w, vals, *, block: int = DEFAULT_BLOCK):
+    R = ell_src.shape[0]
+    return 0, nbytes(ell_src, ell_w, vals) + 4 * (
+        3 * R + R // _relax_block(R, block)), INT
+
+
+def _relax_rows_meta(ell_src, ell_w, vals, *, block: int = DEFAULT_BLOCK):
+    return _rows_out(ell_src.shape[0], block, INT, INT, INT,
+                     device=vals.device)
+
+
+@counted("fused_relax_rows", _relax_rows_cost, _relax_rows_meta)
 def fused_relax_rows(ell_src, ell_w, vals, *, block: int = DEFAULT_BLOCK):
     """(row_min, row_arg, compacted frontier rows, per-block counts)."""
     R, K = ell_src.shape
@@ -164,6 +195,18 @@ def fused_spmv_rows_plain(ell_src, row2dst, vals, block: int):
     return row_sum_plain(ell_src, vals), rows, counts
 
 
+def _spmv_rows_cost(ell_src, row2dst, vals, *, block: int = DEFAULT_BLOCK):
+    R = ell_src.shape[0]
+    return 0, nbytes(ell_src, row2dst, vals) + 4 * (
+        2 * R + R // _relax_block(R, block)), torch.float32
+
+
+def _spmv_rows_meta(ell_src, row2dst, vals, *, block: int = DEFAULT_BLOCK):
+    return _rows_out(ell_src.shape[0], block, torch.float32, INT,
+                     device=vals.device)
+
+
+@counted("fused_spmv_rows", _spmv_rows_cost, _spmv_rows_meta)
 def fused_spmv_rows(ell_src, row2dst, vals, *, block: int = DEFAULT_BLOCK):
     """(row_sum, compacted materialized rows, per-block counts): per ELL
     row the float sum of ``vals[src]`` over its K slots, and the ids of
@@ -269,6 +312,18 @@ def _launch_merge(name: str, pool, batch, dims: int):
     return tuple(out)
 
 
+def _merge_cost(d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w, f_alive, *,
+                n: int):
+    pool = (d_src, d_dst, d_w, d_alive)
+    return 0, 2 * nbytes(*pool) + nbytes(f_src, f_dst, f_w, f_alive), INT
+
+
+def _merge_meta(d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w, f_alive, *,
+                n: int):
+    return tuple(torch.empty_like(t) for t in (d_src, d_dst, d_w, d_alive))
+
+
+@counted("merge_pool_sorted", _merge_cost, _merge_meta)
 def merge_pool_sorted(d_src, d_dst, d_w, d_alive, f_src, f_dst, f_w,
                       f_alive, *, n: int):
     """Merge the sorted diff pool with the sorted admitted batch.
@@ -292,6 +347,7 @@ def merge_pool_sorted_batched_plain(d_src, d_dst, d_w, d_alive, f_src,
     return tuple(torch.stack(col) for col in zip(*outs))
 
 
+@counted("merge_pool_sorted_batched", _merge_cost, _merge_meta)
 def merge_pool_sorted_batched(d_src, d_dst, d_w, d_alive, f_src, f_dst,
                               f_w, f_alive, *, n: int):
     """S independent merges in one launch: pools (S, D), batches (S, B),
@@ -343,16 +399,79 @@ class RepairConfig:
 
 
 _ROW_CANDIDATES = (512, 256, 128)
+_TUNE_LOCK = threading.Lock()
+_TUNE_CACHE: dict = {}  # (n, E_cap, K, measured on) -> RepairConfig
+# (n, E_cap, K, device) -> {row block: best of 3 ms} of each measured shape
+TUNE_TIMES: dict = {}
 
 
-@functools.lru_cache(maxsize=None)
-def repair_config(n: int, e_cap: int, k: int) -> RepairConfig:
+def clear_tune_cache() -> None:
+    with _TUNE_LOCK:
+        _TUNE_CACHE.clear()
+        TUNE_TIMES.clear()
+
+
+def repair_config(n: int, e_cap: int, k: int, *, measure: bool = False,
+                  device=None) -> RepairConfig:
     """Block config for a handle shape, decided once per (n, E_cap, K):
-    the largest candidate that divides R and leaves at least two blocks
-    (ROW_TILE always divides R).  Timing the candidates on the card (the
-    reference's ``measure=True``) waits for a later slice."""
+    the heuristic's (the largest candidate that divides R and leaves at
+    least two blocks; ROW_TILE always divides R), or with ``measure`` the
+    fastest candidate that divides R, each timed by
+    ``fused_relax_rows`` on synthetic data of the keyed shape on
+    ``device`` (the card by default: CUDA events; ``"cpu"``: the plain
+    version).  Measured and heuristic configs are cached apart; the lock
+    makes the first tuner of a shape the one that decides it."""
+    dev = resolve_device(device) if measure else None
+    key = (int(n), int(e_cap), int(k), dev)
+    with _TUNE_LOCK:
+        cfg = _TUNE_CACHE.get(key)
+        if cfg is None:
+            cfg = _measure_config(*key) if measure else \
+                _heuristic_config(*key[:3])
+            _TUNE_CACHE[key] = cfg
+    return cfg
+
+
+def _heuristic_config(n: int, e_cap: int, k: int) -> RepairConfig:
     R = ell_capacity(n, e_cap, k)
     for cand in _ROW_CANDIDATES:
         if R % cand == 0 and R // cand >= 2:
             return RepairConfig(row_block=cand)
     return RepairConfig(row_block=ROW_TILE)
+
+
+def _time_rows(src, w, vals, bt: int) -> float:
+    """Best of 3 ms of one ``fused_relax_rows`` at row block ``bt``, after
+    a warm call (CUDA events on the card, the host clock on the CPU)."""
+    run = lambda: fused_relax_rows(src, w, vals, block=bt)
+    run()
+    best = float("inf")
+    for _ in range(3):
+        if vals.device.type == "cuda":
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            run()
+            ev[1].record()
+            ev[1].synchronize()
+            best = min(best, ev[0].elapsed_time(ev[1]))
+        else:
+            t0 = time.perf_counter()
+            run()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
+
+
+def _measure_config(n: int, e_cap: int, k: int, dev) -> RepairConfig:
+    """Time the row candidates that divide R on synthetic slots (seed 0)."""
+    R = ell_capacity(n, e_cap, k)
+    gen = torch.Generator().manual_seed(0)
+    src = torch.randint(0, n + 1, (R, k), generator=gen, dtype=INT)
+    w = torch.randint(1, 50, (R, k), generator=gen, dtype=INT)
+    vals = torch.cat([torch.randint(0, 1000, (n,), generator=gen,
+                                    dtype=INT),
+                      torch.tensor([2 ** 30], dtype=INT)])
+    src, w, vals = (t.to(dev) for t in (src, w, vals))
+    rows = [bt for bt in _ROW_CANDIDATES if R % bt == 0] or [ROW_TILE]
+    times = {bt: _time_rows(src, w, vals, bt) for bt in rows}
+    TUNE_TIMES[(n, e_cap, k, str(dev))] = times
+    return RepairConfig(row_block=min(rows, key=times.__getitem__))

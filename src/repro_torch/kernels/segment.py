@@ -12,6 +12,10 @@ so the hubs of a skewed graph bound the kernel's time.
 ``segment_sum_sorted`` takes the plain version only for tensors on the
 CPU; for a CUDA tensor it launches the kernel or raises.  ``LAUNCHES``
 counts kernel launches.
+
+Cost rule (``launch/op_cost.counted``; on meta tensors the entry returns
+an empty (num,) output): no FLOPs (adds are elementwise); bytes ``vals``,
+``order`` and ``offsets`` read once and the (num,) sums written once.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from repro_torch.graph.csr import INT
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import check, cuda_device, ptr, raise_on
 from repro_torch.kernels._build import stream as _stream
+from repro_torch.launch.op_cost import counted, nbytes
 
 LAUNCHES = _build.launch_table(__name__, "segment_sum_sorted")
 
@@ -53,6 +58,17 @@ def segment_sum_sorted_plain(vals, order, offsets):
     return out
 
 
+def _cost(vals, order, offsets):
+    ins = (vals, offsets) if order is None else (vals, order, offsets)
+    return 0, nbytes(*ins) + 4 * (offsets.shape[0] - 1), torch.float32
+
+
+def _meta(vals, order, offsets):
+    return torch.empty((offsets.shape[0] - 1,), dtype=torch.float32,
+                       device=vals.device)
+
+
+@counted("segment_sum_sorted", _cost, _meta)
 def segment_sum_sorted(vals, order, offsets):
     """(num,) float32 sums: segment s adds ``vals[order[i]]`` (``vals[i]``
     if ``order`` is None) for i in ``[offsets[s], offsets[s+1])``, in that

@@ -27,13 +27,15 @@ Parameters are trainable (``requires_grad``); serving runs under
 
 ``cache_attend``, ``cross_attention``, the projections and the MoE are
 plain tensor code; the reference computes them outside any kernel too.
-The MoE is the reference's single-device ``gather`` dispatch (what it
-runs without a device mesh); its expert-parallel ``shard_map`` form
-waits for the sharding item (ROADMAP Queue 1 item 14f).  Decode
-writes the new token's k and v into the cache in place (the reference's
-``dynamic_update_slice`` makes a new cache each step); with a window it
-reads only the window's slice of a longer cache, as the reference's
-``window_slice`` tuning does (on in its default ``OPTIMIZED``).
+The MoE dispatches as the active ``Tuning`` says (``models/tuning.py``):
+``'scatter'`` (the baseline) or ``'gather'``, the reference's two
+single-device forms; ``'shard_map'`` falls back to ``'gather'`` with no
+device mesh, as the reference's does (the mesh form waits for the
+sharding item, ROADMAP Queue 1 item 14f).  Decode writes the new token's
+k and v into the cache in place (the reference's ``dynamic_update_slice``
+makes a new cache each step); with a window and the ``window_slice``
+knob (on in the default ``OPTIMIZED``) it reads only the window's slice
+of a longer cache, else full-length logits, masked.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from torch import nn
 from repro_torch.configs.archs import ArchConfig
 from repro_torch.kernels import flash_attention as FK
 from repro_torch.kernels.flash_attention import scaled
+from repro_torch.models.tuning import get_tuning
 
 F32 = torch.float32
 KV_BLOCK = 1024
@@ -217,17 +220,17 @@ def attention_decode(p, x, cfg: ArchConfig, cache_k, cache_v, pos: int,
 def cache_attend(q, cache_k, cache_v, cfg: ArchConfig, pos: int,
                  window=None):
     """q: (B,1,H,dh); cache: (B,kv,S,dh) -> (B,1,H,dh); keys past ``pos``
-    masked, and with a window those ``window`` or more behind it.  A cache
-    longer than the window is read only in its window-sized slice from
-    ``clip(pos - window + 1, 0, S - window)`` (the reference's
-    ``window_slice``): ``pos`` is a host int, so the slice is a view."""
+    masked, and with a window those ``window`` or more behind it.  Under
+    the ``window_slice`` knob a cache longer than the window is read only
+    in its window-sized slice from ``clip(pos - window + 1, 0, S -
+    window)``: ``pos`` is a host int, so the slice is a view."""
     B, _, H, dh = q.shape
     kv = cache_k.shape[1]
     rep = H // kv
     qh = scaled(q.reshape(B, kv, rep, dh), dh ** -0.5)
     S = cache_k.shape[2]
     base = 0
-    if window is not None and S > window:
+    if window is not None and get_tuning().window_slice and S > window:
         base = min(max(pos - window + 1, 0), S - window)
         cache_k = cache_k[:, :, base:base + window]
         cache_v = cache_v[:, :, base:base + window]
@@ -320,23 +323,38 @@ def moe_route(router, xt, E: int, K: int, C: int) -> Route:
                  slot, tok_for_slot[:E * C])
 
 
+MOE_DISPATCHES = ("scatter", "gather", "shard_map")
+
+
 def moe(p, x, cfg: ArchConfig):
-    """Capacity-based top-k MoE, the reference's single-device ``gather``
-    dispatch: each expert's rows gathered into a static (E, C, D) buffer
-    by ``tok_for_slot`` (overflowing pairs dropped), the SwiGLU experts as
-    batched products, and each token's kept outputs weighted by their
-    gates and added in ascending expert order (the order of the
-    reference's scatter-add over the sorted pairs) with no atomics."""
+    """Capacity-based top-k MoE on one device: each expert's rows in a
+    static (E, C, D) buffer (overflowing pairs dropped), the SwiGLU
+    experts as batched products, and each token's kept outputs weighted
+    by their gates and added in ascending expert order (the order of the
+    reference's scatter-add over the sorted pairs) with no atomics.  The
+    buffer is filled as the ``moe_dispatch`` knob says: ``'scatter'``
+    writes each kept pair's row at its slot, ``'gather'`` (and
+    ``'shard_map'`` without a mesh) gathers each slot's row by
+    ``tok_for_slot``; both give the same buffer."""
     mc = cfg.moe
     B, S, D = x.shape
     T = B * S
     E, K = mc.n_experts, mc.top_k
     C = max(int(T * K / E * mc.capacity_factor), 8)
+    dispatch = get_tuning().moe_dispatch
+    if dispatch not in MOE_DISPATCHES:
+        raise ValueError(f"unknown moe_dispatch {dispatch!r}; one of "
+                         f"{MOE_DISPATCHES}")
     xt = x.reshape(T, D)
     r = moe_route(p["router"], xt, E, K, C)
-    xe = torch.where((r.tok_for_slot < T)[:, None],
-                     xt[torch.clamp(r.tok_for_slot, max=T - 1)],
-                     torch.zeros((), dtype=x.dtype, device=x.device))
+    if dispatch == "scatter":
+        xe = torch.zeros((E * C + 1, D), dtype=x.dtype, device=x.device)
+        xe[r.slot] = xt[r.tok_s]          # every dropped pair lands on E * C
+        xe = xe[:E * C]
+    else:
+        xe = torch.where((r.tok_for_slot < T)[:, None],
+                         xt[torch.clamp(r.tok_for_slot, max=T - 1)],
+                         torch.zeros((), dtype=x.dtype, device=x.device))
     xe = xe.reshape(E, C, D)
     g = torch.bmm(xe, p["w_gate"])
     ye = torch.bmm(g * torch.sigmoid(g) * torch.bmm(xe, p["w_up"]),

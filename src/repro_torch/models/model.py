@@ -8,8 +8,10 @@ embeddings, (B, T, D)) where the arch has them.
 The reference's step functions take the params pytree; here ``Model`` is
 an ``nn.Module`` that holds them (``init`` draws them from an explicit
 ``torch.Generator``, ``params_from_jax`` loads the reference's).  On one
-card the reference's sharding ``Policy`` is the identity and its
-``Tuning`` knobs steer only SPMD layouts, so neither is ported.
+card the reference's sharding ``Policy`` is the identity, so it is not
+ported.  ``tuning`` (``models/tuning.py``, default ``OPTIMIZED``) is bound
+by each step function as the reference binds it: on one card it chooses
+the MoE dispatch and the windowed cache read.
 
 Backends, as in the graph port: ``"cuda"`` (the default) runs prefill
 attention through the hand-written flash kernel; ``"torch"`` computes the
@@ -39,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.archs import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.models.tuning import OPTIMIZED, Tuning, use_tuning
 from repro_torch.optim.opt import make_optimizer
 from repro_torch.tensors import resolve_device
 
@@ -48,7 +51,7 @@ CE_CHUNK = 512
 
 class Model(nn.Module):
     def __init__(self, cfg: ArchConfig, dtype=torch.bfloat16, device=None,
-                 backend: str = "cuda", lr=None):
+                 backend: str = "cuda", lr=None, tuning: Tuning = OPTIMIZED):
         super().__init__()
         if backend not in L.BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; one of "
@@ -56,6 +59,7 @@ class Model(nn.Module):
         for spec in cfg.pattern:
             T.check_spec(spec)
         self.cfg, self.dtype, self.backend = cfg, dtype, backend
+        self.tuning = tuning
         self.device = resolve_device(device)
         self.params = None
         self.optimizer = make_optimizer(cfg.optimizer, lr)
@@ -123,6 +127,10 @@ class Model(nn.Module):
         """The mean cross-entropy of ``batch`` ("tokens", "labels": (B, S)
         ints; "src" where the arch reads one), through the rematerialised
         backbone."""
+        with use_tuning(self.tuning):
+            return self._loss(batch)
+
+    def _loss(self, batch):
         cfg = self.cfg
         x = self._embed(_tensor(batch["tokens"]).to(self.device))
         src = self._aux(batch)
@@ -139,9 +147,9 @@ class Model(nn.Module):
         """The loss, with every parameter's ``.grad`` set to its gradient."""
         for p in self.parameters():
             p.grad = None
-        with torch.enable_grad():
-            loss = self.loss(batch)
-            loss.backward()
+        with torch.enable_grad(), use_tuning(self.tuning):
+            loss = self._loss(batch)
+            loss.backward()       # the remat recompute runs under it too
         return loss.detach()
 
     def train_step(self, opt_state, step: int, batch):
@@ -161,6 +169,10 @@ class Model(nn.Module):
         (B, kv, P, dh) per attention layer, the zero state per recurrent
         one, as the reference's prefill leaves it, {} per cross-attention
         one)."""
+        with use_tuning(self.tuning):
+            return self._prefill_step(tokens, src)
+
+    def _prefill_step(self, tokens, src):
         cfg = self.cfg
         x = self._embed(tokens.to(self.device))
         src = self._src(src) if cfg.family in ("vlm", "audio") else None
@@ -182,8 +194,9 @@ class Model(nn.Module):
         ``serve_step`` does the same.  ``long_mode`` windows the global
         layers of an arch with an attention softcap too."""
         x = self._embed(token.to(self.device))
-        h, cache = T.backbone_decode(self.cfg, self.params, x, cache, pos,
-                                     self._src(src), long_mode)
+        with use_tuning(self.tuning):
+            h, cache = T.backbone_decode(self.cfg, self.params, x, cache,
+                                         pos, self._src(src), long_mode)
         return self._logits(h)[:, 0], cache
 
 

@@ -79,13 +79,29 @@ def _mamba_select(p, u):
 
 def _mamba_scan_chunk(h0, a, bu):
     """h_t = a_t * h_{t-1} + bu_t over a chunk; a/bu: (B, T, E, N)
-    float32, h0: (B, E, N).  Returns every h_t and the last."""
+    float32, h0: (B, E, N).  Returns every h_t and the last.
+
+    Each doubling round is one addcmul and one mul.  Where autograd
+    records, they build the round's a and bu with ``torch.cat`` (no
+    in-place write); serving writes them into fresh buffers with ``out=``
+    instead, which moves each round's bytes once, not twice, and gives the
+    same bits."""
     T = a.shape[1]
+    buffered = not (torch.is_grad_enabled() and
+                    (a.requires_grad or bu.requires_grad or
+                     h0.requires_grad))
     d = 1
-    while d < T:        # each round one addcmul and one mul, no in-place
-        bu = torch.cat([bu[:, :d], torch.addcmul(bu[:, d:], a[:, d:],
-                                                 bu[:, :-d])], 1)
-        a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], 1)
+    while d < T:
+        if buffered:
+            nb, na = torch.empty_like(bu), torch.empty_like(a)
+            nb[:, :d], na[:, :d] = bu[:, :d], a[:, :d]
+            torch.addcmul(bu[:, d:], a[:, d:], bu[:, :-d], out=nb[:, d:])
+            torch.mul(a[:, d:], a[:, :-d], out=na[:, d:])
+            a, bu = na, nb
+        else:
+            bu = torch.cat([bu[:, :d], torch.addcmul(bu[:, d:], a[:, d:],
+                                                     bu[:, :-d])], 1)
+            a = torch.cat([a[:, :d], a[:, d:] * a[:, :-d]], 1)
         d *= 2
     h = a * h0[:, None] + bu
     return h, h[:, -1]
@@ -196,25 +212,31 @@ def mlstm_train(p, x, cfg: ArchConfig):
         cumf = torch.cumsum(torch.log(ff + 1e-8), 1)             # (B,T,H)
         dmat = cumf[:, :, None] - cumf[:, None, :]               # (B,T,T',H)
         # the upper triangle of exp(dmat) can be inf: select, not multiply
-        w = torch.where(mask[None, :, :, None], torch.exp(dmat), 0.0)
-        aw = torch.einsum("bthd,bshd->btsh", qq, kk).to(F32) * \
-            (w * ii[:, None])
+        # the upper triangle of exp(dmat) can be inf: select, not multiply
+        w = torch.where(mask[None, :, :, None], torch.exp(dmat), 0.0) * \
+            ii[:, None]
+        att = torch.einsum("bthd,bshd->btsh", qq, kk).to(F32)
         vf = vv.to(F32)
-        intra = torch.einsum("btsh,bshd->bthd", aw, vf)
-        # inter-chunk: the carried matrix memory, decayed to each t
-        decay_to_t = torch.exp(cumf)
-        qf = qq.to(F32)
-        inter = torch.einsum("bthd,bhde->bthe", qf, Cmem) * \
-            decay_to_t[..., None]
-        norm = torch.einsum("bthd,bhd->bth", qf, nmem) * decay_to_t + \
-            aw.sum(2)
-        y = (intra + inter) / torch.clamp(norm.abs(), min=1.0)[..., None]
+        intra = torch.einsum("btsh,bshd->bthd", att * w, vf)
+        norm = torch.einsum("btsh,btsh->bth", att, w)
+        if c:
+            # inter-chunk: the carried matrix memory, decayed to each t
+            # (zero before the second chunk, so the first skips it)
+            decay_to_t = torch.exp(cumf)
+            qf = qq.to(F32)
+            intra = intra + torch.einsum("bthd,bhde->bthe", qf, Cmem) * \
+                decay_to_t[..., None]
+            norm = torch.einsum("bthd,bhd->bth", qf, nmem) * decay_to_t + \
+                norm
+        y = intra / torch.clamp(norm.abs(), min=1.0)[..., None]
         # the memory at the chunk's end
         tot = cumf[:, -1]                                         # (B,H)
-        kg = kk.to(F32) * (torch.exp(tot[:, None] - cumf) * ii)[..., None]
+        kf = kk.to(F32)
+        gate = torch.exp(tot[:, None] - cumf) * ii                # (B,T,H)
         Cmem = Cmem * torch.exp(tot)[..., None, None] + \
-            torch.einsum("bshd,bshe->bhde", kg, vf)
-        nmem = nmem * torch.exp(tot)[..., None] + kg.sum(1)
+            torch.einsum("bshd,bshe->bhde", kf * gate[..., None], vf)
+        nmem = nmem * torch.exp(tot)[..., None] + \
+            torch.einsum("bshd,bsh->bhd", kf, gate)
         ys.append(y.to(x.dtype))
     return _mlstm_out(p, x, torch.cat(ys, 1).reshape(B, S, H * dh))
 

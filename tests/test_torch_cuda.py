@@ -1525,3 +1525,18 @@ def test_nccl_one_rank_equals_stacked(dev):
                 assert torch.equal(got[k], want[algo][k]), (algo, k)
     finally:
         tdist.destroy_process_group()
+
+
+def test_mamba_scan_serving_form_matches_training_form_on_card(dev):
+    """The Mamba doubling scan's serving form (buffers written with
+    ``out=``) and its training form (``torch.cat``) on the card: the same
+    bits, at jamba's chunk of 64 positions and d_state 16."""
+    from repro_torch.models import ssm
+    g = torch.Generator(device=dev).manual_seed(0)
+    a = torch.rand((2, 64, 1024, 16), generator=g, device=dev)
+    bu = torch.randn((2, 64, 1024, 16), generator=g, device=dev)
+    h0 = torch.randn((2, 1024, 16), generator=g, device=dev)
+    with torch.no_grad():
+        h, last = ssm._mamba_scan_chunk(h0, a, bu)
+    ht, lastt = ssm._mamba_scan_chunk(h0, a.clone().requires_grad_(), bu)
+    assert torch.equal(h, ht.detach()) and torch.equal(last, lastt.detach())

@@ -337,6 +337,53 @@ def test_repair_config_matches_heuristic():
         assert TK.repair_config(n, e_cap, k) is got
 
 
+def test_repair_config_cached_per_shape():
+    """tests/test_kernels.py's test on the port: the heuristic config
+    cached per shape, then ``measure=True`` on the CPU (the plain version
+    timed at each row block that divides R), cached apart from it."""
+    TK.clear_tune_cache()
+    c1 = TK.repair_config(64, 300, 8)
+    assert TK.repair_config(64, 300, 8) is c1          # cache hit
+    assert TK.repair_config(64, 600, 8) is not c1      # new shape, new cfg
+    assert tell.ell_capacity(64, 300, 8) % c1.row_block == 0
+    TK.clear_tune_cache()
+    for n, e_cap in [(32, 64), (4096, 30000), (4096, 32000)]:
+        R = tell.ell_capacity(n, e_cap, 8)
+        cm = TK.repair_config(n, e_cap, 8, measure=True, device="cpu")
+        assert cm.row_block in (128, 256, 512) and R % cm.row_block == 0
+        assert set(TK.TUNE_TIMES[(n, e_cap, 8, "cpu")]) == {
+            bt for bt in (512, 256, 128) if R % bt == 0}
+        assert TK.repair_config(n, e_cap, 8, measure=True,
+                                device="cpu") is cm
+        assert TK.repair_config(n, e_cap, 8).row_block == \
+            RK._heuristic_config(n, e_cap, 8).row_block
+    TK.clear_tune_cache()
+    assert not TK.TUNE_TIMES
+
+
+def test_autotuned_cuda_engine_runs_sssp_as_the_default():
+    """``CudaEngine(autotune=True)`` on the CPU: the measured row block,
+    SSSP's dist and parent equal to the heuristic engine's."""
+    import repro_torch
+    from repro_torch.algos import sssp
+    TK.clear_tune_cache()
+    n, edges, w = repro_torch.rmat_graph(9, 8, seed=0)
+    csr = t_build_csr(n, edges, w, device="cpu")
+    stream = repro_torch.random_updates(csr, percent=5, seed=1)
+    out = []
+    for autotune in (False, True):
+        sess = repro_torch.bind_graph(csr, backend="cuda", capacity=2048,
+                                      device="cpu", autotune=autotune)
+        props = sess.run_stream(stream, 256, sssp.stream_step,
+                                sess.call(sssp.static_sssp, 0))
+        out.append(props)
+        assert sess.engine.autotune is autotune
+    assert len(TK.TUNE_TIMES) == 1
+    for k in ("dist", "parent"):
+        assert torch.equal(out[0][k], out[1][k]), k
+    TK.clear_tune_cache()
+
+
 def test_cpu_wrappers_count_no_launch():
     """On CPU tensors the wrappers run the plain versions: no launch."""
     for mod in (TK, TC, TS):

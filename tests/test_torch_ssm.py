@@ -296,3 +296,20 @@ def test_xlstm_prefill_launches_no_kernel():
     finally:
         TF.flash_attention = real
     assert calls == []
+
+
+def test_mamba_scan_serving_form_equals_the_training_form():
+    """The doubling scan without autograd (fresh buffers written with
+    ``out=``, no ``torch.cat``) and with it (``torch.cat``): the same
+    addcmul and mul in the same order, so the same bits."""
+    from repro_torch.launch.op_cost import CostCounter
+    g = torch.Generator().manual_seed(0)
+    a = torch.rand((2, 64, 16, 4), generator=g)
+    bu = torch.randn((2, 64, 16, 4), generator=g)
+    h0 = torch.randn((2, 16, 4), generator=g)
+    with torch.no_grad(), CostCounter() as served:
+        h, last = TS._mamba_scan_chunk(h0, a, bu)
+    with CostCounter() as trained:
+        ht, lastt = TS._mamba_scan_chunk(h0, a.clone().requires_grad_(), bu)
+    assert torch.equal(h, ht.detach()) and torch.equal(last, lastt.detach())
+    assert "cat" not in served.bytes_by_op and "cat" in trained.bytes_by_op
